@@ -1,0 +1,73 @@
+"""Environment protocol (port of `repro.core.env`).
+
+An `Env` holds only static configuration; its dynamics are functions of an
+explicit state. Unlike the JAX package, whose envs step one lane and are
+batched by `vmap`, every env here is batch-native: `reset(keys)` takes keys
+of shape (..., 2) and returns a state NamedTuple whose leaves carry the same
+leading axes, and `step` advances every lane at once.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.core.spaces import Space
+
+
+class Timestep(NamedTuple):
+    """One batched transition. `done` folds termination and truncation;
+    `TimeLimit` keeps them apart through `info["truncated"]`."""
+
+    state: Any
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    info: Dict[str, torch.Tensor]
+
+
+class Env:
+    """Base environment.
+
+    Contract:
+      reset(keys (..., 2))  -> (state, obs (..., O))
+      step(state, action)   -> Timestep over the same lanes
+    """
+
+    observation_space: Space
+    action_space: Space
+
+    def reset(self, keys: torch.Tensor) -> Tuple[Any, torch.Tensor]:
+        raise NotImplementedError
+
+    def step(self, state: Any, action: torch.Tensor) -> Timestep:
+        raise NotImplementedError
+
+    def fused_step(self, state: Any, actions: torch.Tensor,
+                   num_steps: int = None, *, backend: str = "auto",
+                   active: torch.Tensor = None):
+        """Advance a batched `AutoReset` state by `num_steps` steps in one
+        megastep launch (repro_torch.kernels.envstep.fused_step).
+
+        Returns `(new_state, Timestep)` with a leading step axis on the
+        Timestep leaves. Raises NotImplementedError for a stack without a
+        fused spec; probe with `supports_fused_step(env)`.
+        """
+        from repro_torch.kernels.envstep import fused_step as _fused_step
+
+        return _fused_step(self, state, actions, num_steps=num_steps,
+                           backend=backend, active=active)
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"{type(self).__name__}()"
+
+
+def supports_fused_step(env: Env) -> bool:
+    """True if `env.fused_step` will run for this stack."""
+    from repro_torch.kernels.envstep import supports
+
+    return supports(env)

@@ -1,0 +1,72 @@
+"""Declarative env pipelines (port of `repro.core.pipeline`).
+
+A `Transform` is the data of one wrapper application (`TimeLimit(500)`), so
+the registry builds stacks from it and the fused planner
+(kernels/envstep/specs.py::lookup) reads a built stack back as
+`(core, transforms)` instead of inspecting wrapper classes. Only the
+`TimeLimit` transform is ported so far; the pixel transforms come with the
+pixel slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import ClassVar, Optional, Tuple, Type
+
+from repro_torch.core import wrappers as _w
+from repro_torch.core.env import Env
+
+
+@dataclasses.dataclass(frozen=True)
+class Transform:
+    """One declarative wrapper application. Frozen, hashable, rebuildable."""
+
+    wrapper: ClassVar[Type[_w.Wrapper]]
+
+    def build(self, env: Env) -> Env:
+        return self.wrapper(env, **{f.name: getattr(self, f.name)
+                                    for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeLimit(Transform):
+    """Truncate episodes at `max_steps` (wrappers.TimeLimit)."""
+
+    max_steps: int
+    wrapper = _w.TimeLimit
+
+
+def build_pipeline(env: Env, transforms: Tuple[Transform, ...]) -> Env:
+    """Apply transforms innermost-first."""
+    for t in transforms:
+        env = t.build(env)
+    return env
+
+
+#: built wrapper -> its Transform
+_FROM_WRAPPER = {
+    _w.TimeLimit: lambda w: TimeLimit(w.max_steps),
+}
+
+
+def transform_of(wrapper: _w.Wrapper) -> Optional[Transform]:
+    """The Transform that rebuilds `wrapper`, or None if it is opaque."""
+    fn = _FROM_WRAPPER.get(type(wrapper))
+    return fn(wrapper) if fn is not None else None
+
+
+def declared_pipeline(env: Env):
+    """Walk a built stack back to `(core_env, transforms)` (innermost-first),
+    or `(None, None)` when a wrapper in it is opaque (AutoReset and Vec are
+    applied by pools and are opaque here, as in the JAX package)."""
+    transforms = []
+    while isinstance(env, _w.Wrapper):
+        t = transform_of(env)
+        if t is None:
+            return None, None
+        transforms.append(t)
+        env = env.env
+    return env, tuple(reversed(transforms))
+
+
+__all__ = ["TimeLimit", "Transform", "build_pipeline", "declared_pipeline",
+           "transform_of"]

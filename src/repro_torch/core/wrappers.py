@@ -1,0 +1,132 @@
+"""Wrappers (port of `repro.core.wrappers`): `TimeLimit`, `AutoReset`, `Vec`.
+
+Batch-native over the leading lane axes: where the JAX package composes
+single-env wrappers and `vmap`s the stack, each wrapper here steps all lanes
+at once. `ObsToPixels`, `FrameStack`, `FlattenObs` and `RewardScale` come
+with later slices.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch import random as R
+from repro_torch.core.env import Env
+from repro_torch.core.spaces import Space
+
+
+class Wrapper(Env):
+    """Delegating base wrapper."""
+
+    def __init__(self, env: Env):
+        self.env = env
+
+    @property
+    def observation_space(self) -> Space:  # type: ignore[override]
+        return self.env.observation_space
+
+    @property
+    def action_space(self) -> Space:  # type: ignore[override]
+        return self.env.action_space
+
+    @property
+    def name(self) -> str:
+        return self.env.name
+
+    def reset(self, keys):
+        return self.env.reset(keys)
+
+    def step(self, state, action):
+        return self.env.step(state, action)
+
+    def __repr__(self):  # pragma: no cover
+        return f"{type(self).__name__}({self.env!r})"
+
+
+class TimeLimitState(NamedTuple):
+    inner: Any
+    t: torch.Tensor
+
+
+class TimeLimit(Wrapper):
+    """Truncate episodes at `max_steps`.
+
+    `done` folds terminal | truncation; `info["truncated"]` is True only
+    where the cut is the time limit and the state is not env-terminal.
+    """
+
+    def __init__(self, env: Env, max_steps: int):
+        super().__init__(env)
+        self.max_steps = max_steps
+
+    def reset(self, keys):
+        inner, obs = self.env.reset(keys)
+        t = torch.zeros(keys.shape[:-1], dtype=torch.int32, device=keys.device)
+        return TimeLimitState(inner, t), obs
+
+    def step(self, state: TimeLimitState, action):
+        ts = self.env.step(state.inner, action)
+        t = state.t + 1
+        truncated = (t >= self.max_steps) & ~ts.done
+        info = dict(ts.info)
+        info["truncated"] = truncated
+        return ts._replace(state=TimeLimitState(ts.state, t),
+                           done=ts.done | truncated, info=info)
+
+
+class AutoResetState(NamedTuple):
+    inner: Any
+    key: torch.Tensor
+
+
+def _where(done: torch.Tensor, a, b):
+    """Per-lane select over matching NamedTuple states (or tensors)."""
+    if isinstance(a, tuple):
+        return type(a)(*(_where(done, x, y) for x, y in zip(a, b)))
+    return torch.where(done.reshape(done.shape + (1,) * (a.dim() - done.dim())),
+                       a, b)
+
+
+class AutoReset(Wrapper):
+    """Reset lanes whose episode ended, from each lane's own key chain.
+
+    The pre-reset observation is surfaced in `info["terminal_obs"]`.
+    """
+
+    def reset(self, keys):
+        pair = R.split(keys)
+        inner, obs = self.env.reset(pair[..., 1, :])
+        return AutoResetState(inner, pair[..., 0, :]), obs
+
+    def step(self, state: AutoResetState, action):
+        ts = self.env.step(state.inner, action)
+        pair = R.split(state.key)
+        fresh_state, fresh_obs = self.env.reset(pair[..., 1, :])
+        info = dict(ts.info)
+        info["terminal_obs"] = ts.obs
+        return ts._replace(
+            state=AutoResetState(_where(ts.done, fresh_state, ts.state),
+                                 pair[..., 0, :]),
+            obs=_where(ts.done, fresh_obs, ts.obs), info=info)
+
+
+class Vec(Wrapper):
+    """`num_envs` lanes of one env stack.
+
+    `reset(key)` splits one key into a key per lane, as the JAX `Vec` does.
+    `step` needs no key: the JAX `Vec.step` splits a per-lane key that no
+    ported env's dynamics read, so leaving it out changes no output
+    (tests/test_torch_pool.py holds the trajectories to the JAX pool).
+    """
+
+    def __init__(self, env: Env, num_envs: int):
+        super().__init__(env)
+        self.num_envs = num_envs
+
+    def reset(self, key):
+        return self.env.reset(R.split(key, self.num_envs))
+
+
+__all__ = ["AutoReset", "AutoResetState", "TimeLimit", "TimeLimitState",
+           "Vec", "Wrapper"]

@@ -1,0 +1,269 @@
+"""EnvPool-style batched environment engine (port of `repro.pool.envpool`).
+
+The batched env state lives on the pool's device and never crosses to the
+host on the step path. Two surfaces, as in the JAX package:
+
+  - Gym-style stateful:  `obs = pool.reset(seed)`,
+                         `obs, rew, done, info = pool.step(actions)`.
+  - pure functions:      `h = pool.xla()`, `carry = h.init(key)`,
+                         `carry, out = h.step(carry, actions[, key])`.
+    The name is kept so the JAX counterpart is easy to find; here they are
+    plain PyTorch functions of an explicit carry.
+
+Backends: "vmap" steps `Vec(AutoReset(env))` once per step with plain
+tensor ops; "cuda" runs `unroll` steps per launch of the CUDA megastep
+kernel; "torch" runs the megastep's plain PyTorch version (the CPU path).
+The RNG plumbing (pool key, per-step `fold_in`, action sampling) is the JAX
+pool's, so every backend follows the JAX pool's trajectories.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import random as R
+from repro_torch.core.env import Env, supports_fused_step
+from repro_torch.core.registry import make as registry_make
+from repro_torch.core.spaces import sample_batch
+from repro_torch.core.wrappers import AutoReset, Vec
+
+#: megastep backends: the CUDA kernel, or its plain PyTorch version
+FUSED_BACKENDS = ("cuda", "torch")
+
+
+class PoolState(NamedTuple):
+    """Pool carry. Everything stays on the pool's device."""
+
+    env_state: Any          # Vec(AutoReset(env)) state, leading dim B
+    obs: torch.Tensor       # (B, ...) current observation
+    key: torch.Tensor       # fallback RNG stream for key-less stepping
+
+
+class PoolStep(NamedTuple):
+    """One batched transition (post-autoreset obs; terminal obs in info)."""
+
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    info: Dict[str, torch.Tensor]
+
+
+class XlaPool(NamedTuple):
+    """Pure-function handle (counterpart of the JAX pool's XLA API)."""
+
+    init: Callable[[torch.Tensor], PoolState]
+    step: Callable[..., Tuple[PoolState, PoolStep]]
+    step_many: Callable[..., Tuple[PoolState, PoolStep]]
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when None; raises if CUDA is absent."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on the CUDA card by default and no CUDA "
+                "device is available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    a = x.detach().cpu().numpy().copy()
+    return a.astype(np.uint32) if x.dtype == R.KEY_DTYPE else a
+
+
+def _load_like(template, src, device):
+    """Rebuild `template`'s structure from `src`, read by field names only."""
+    if isinstance(template, tuple):
+        return type(template)(**{f: _load_like(getattr(template, f),
+                                               getattr(src, f), device)
+                                 for f in template._fields})
+    arr = np.asarray(src)
+    if arr.shape != tuple(template.shape):
+        raise ValueError(f"snapshot leaf has shape {arr.shape}, this pool "
+                         f"holds {tuple(template.shape)}")
+    if template.dtype == R.KEY_DTYPE:
+        arr = arr.astype(np.int64)
+    return torch.as_tensor(arr, device=device).to(template.dtype)
+
+
+def _map(fn, tree):
+    if isinstance(tree, tuple):
+        return type(tree)(*(_map(fn, x) for x in tree))
+    return fn(tree)
+
+
+class EnvPool:
+    """Batched pool of one env type: `Vec(AutoReset(env), num_envs)`.
+
+    >>> pool = EnvPool("CartPole-v1", num_envs=256, backend="cuda")
+    >>> obs = pool.reset(seed=0)                  # (256, 4) on the card
+    >>> obs, rew, done, info = pool.step(actions)
+    """
+
+    def __init__(self, env: Union[Env, str], num_envs: int,
+                 backend: str = "vmap", unroll: int = 1, device=None):
+        if isinstance(env, str):
+            env = registry_make(env)
+        self.env = env
+        self.num_envs = int(num_envs)
+        self.device = resolve_device(device)
+        self.backend = backend
+        self.unroll = max(int(unroll), 1)
+        if backend in FUSED_BACKENDS:
+            if not supports_fused_step(env):
+                raise ValueError(f"backend={backend!r} needs a fused megastep "
+                                 f"spec, and {env.name} has none; use "
+                                 "backend='vmap'")
+            if backend == "cuda" and self.device.type != "cuda":
+                raise ValueError("backend='cuda' runs the CUDA kernel and "
+                                 f"needs a CUDA device, not {self.device}")
+        elif backend != "vmap":
+            raise ValueError(f"unknown pool backend {backend!r}; expected "
+                             f"'vmap' or one of {FUSED_BACKENDS}")
+        self.venv = Vec(AutoReset(env), self.num_envs)
+        self._carry: Optional[Tuple[Any, torch.Tensor]] = None  # (state, key)
+        self._obs: Optional[torch.Tensor] = None
+
+    @property
+    def observation_space(self):
+        return self.env.observation_space
+
+    @property
+    def action_space(self):
+        return self.env.action_space
+
+    def __len__(self) -> int:
+        return self.num_envs
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"{type(self).__name__}({self.env.name}, num_envs="
+                f"{self.num_envs}, backend={self.backend!r}, "
+                f"device={self.device})")
+
+    @property
+    def _fused(self) -> bool:
+        return self.backend in FUSED_BACKENDS
+
+    # -- pure API ------------------------------------------------------------
+    def _xla_init(self, key: torch.Tensor) -> PoolState:
+        state, obs = self.venv.reset(key)
+        return PoolState(state, obs, R.fold_in(key, 0x57EB))
+
+    def _step_many_core(self, env_state, actions: torch.Tensor):
+        """K batched env steps -> (env_state, (obs, reward, done, info)),
+        outputs stacked on a leading (K, ...) axis."""
+        if self._fused:
+            new_state, ts = self.env.fused_step(
+                env_state, actions, num_steps=actions.shape[0],
+                backend=self.backend)
+            return new_state, (ts.obs, ts.reward, ts.done, ts.info)
+        outs = []
+        for a in actions:
+            ts = self.venv.step(env_state, a)
+            env_state = ts.state
+            outs.append(ts)
+        info = {k: torch.stack([ts.info[k] for ts in outs]) for k in outs[0].info}
+        return env_state, (torch.stack([ts.obs for ts in outs]),
+                           torch.stack([ts.reward for ts in outs]),
+                           torch.stack([ts.done for ts in outs]), info)
+
+    def _xla_step(self, carry: PoolState, actions: torch.Tensor,
+                  key: Optional[torch.Tensor] = None
+                  ) -> Tuple[PoolState, PoolStep]:
+        ps, out = self._xla_step_many(carry, actions[None], key)
+        return ps, PoolStep(out.obs[0], out.reward[0], out.done[0],
+                            {k: v[0] for k, v in out.info.items()})
+
+    def _xla_step_many(self, carry: PoolState, actions: torch.Tensor,
+                       key: Optional[torch.Tensor] = None
+                       ) -> Tuple[PoolState, PoolStep]:
+        """Step the pool `actions.shape[0]` times; outputs carry a leading
+        (K, ...) axis. Without `key` the carry's key chain advances, as in
+        the JAX pool; no ported env's dynamics read the per-step key."""
+        next_key = R.split(carry.key)[0] if key is None else carry.key
+        state, (obs, reward, done, info) = self._step_many_core(
+            carry.env_state, actions)
+        return (PoolState(state, obs[-1], next_key),
+                PoolStep(obs, reward, done, info))
+
+    def xla(self) -> XlaPool:
+        """Pure `(init, step, step_many)` over an explicit carry."""
+        return XlaPool(self._xla_init, self._xla_step, self._xla_step_many)
+
+    # -- Gym-style stateful API ---------------------------------------------
+    def reset(self, seed: int = 0) -> torch.Tensor:
+        """(Re)initialise all envs; returns the batched observation."""
+        ps = self._xla_init(R.PRNGKey(seed, self.device))
+        self._carry, self._obs = (ps.env_state, ps.key), ps.obs
+        return self._obs
+
+    def step(self, actions, key: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict]:
+        """Step every env once. Autoreset on done. `key` pins the per-step
+        RNG stream and leaves the carry's chain untouched."""
+        if self._carry is None:
+            raise RuntimeError("call reset() before step()")
+        env_state, carry_key = self._carry
+        ps, out = self._xla_step(PoolState(env_state, self._obs, carry_key),
+                                 torch.as_tensor(actions, device=self.device),
+                                 key)
+        self._carry, self._obs = (ps.env_state, ps.key), out.obs
+        return out.obs, out.reward, out.done, out.info
+
+    def sample_actions(self, seed: int = 0) -> torch.Tensor:
+        return sample_batch(self.action_space, R.PRNGKey(seed, self.device),
+                            self.num_envs)
+
+    # -- snapshot / restore -------------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        """Host snapshot of the stateful carry, in the JAX pool's structure:
+        numpy leaves, float32 state, int32 step counters, uint32 keys."""
+        if self._carry is None:
+            raise RuntimeError("call reset() before snapshotting the pool")
+        env_state, key = self._carry
+        return {"env_state": _map(_to_numpy, env_state), "key": _to_numpy(key),
+                "obs": _to_numpy(self._obs)}
+
+    def load_state_dict(self, d: Dict[str, Any]) -> None:
+        """Restore a `state_dict()` snapshot, this pool's or the JAX pool's:
+        its NamedTuples are read by field name, its leaves as arrays."""
+        template = self._xla_init(R.PRNGKey(0, self.device))
+        self._carry = (_load_like(template.env_state, d["env_state"],
+                                  self.device),
+                       _load_like(template.key, d["key"], self.device))
+        self._obs = _load_like(template.obs, d["obs"], self.device)
+
+    # -- whole-rollout fast path --------------------------------------------
+    def rollout(self, num_steps: int, key: torch.Tensor, render: bool = False):
+        """Random-policy rollout: (sum_reward (B,), episodes (B,), zeros (B,)).
+
+        Fused backends run `unroll` steps per megastep launch. The RNG is
+        the JAX pool's: the carry from `fold_in(key, 0x5EED)`, step i's
+        actions from `fold_in(key, i)`, i in 1..num_steps.
+        """
+        if render:
+            raise NotImplementedError(
+                "render=True rollouts come with the pixel slice (ROADMAP A8)")
+        key = key.to(self.device)
+        ps = self._xla_init(R.fold_in(key, 0x5EED))
+        rew = torch.zeros(self.num_envs, dtype=torch.float32, device=self.device)
+        eps = torch.zeros(self.num_envs, dtype=torch.int32, device=self.device)
+        kk = max(min(self.unroll, num_steps), 1) if self._fused else 1
+        for start in range(1, num_steps + 1, kk):
+            n = min(kk, num_steps + 1 - start)
+            steps = torch.arange(start, start + n, dtype=R.KEY_DTYPE,
+                                 device=self.device)
+            acts = sample_batch(self.action_space, R.fold_in(key, steps),
+                                self.num_envs)
+            ps, out = self._xla_step_many(ps, acts, key)
+            rew = rew + out.reward.sum(0)
+            eps = eps + out.done.sum(0, dtype=torch.int32)
+        return rew, eps, torch.zeros(self.num_envs, dtype=torch.float32,
+                                     device=self.device)
+
+
+__all__ = ["EnvPool", "FUSED_BACKENDS", "PoolState", "PoolStep", "XlaPool",
+           "resolve_device"]

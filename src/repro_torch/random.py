@@ -1,0 +1,147 @@
+"""Legacy `jax.random` in PyTorch: threefry-2x32 keys with the same bits.
+
+The committed golden traces (tests/golden/) and every parity test against
+the JAX package depend on the exact random stream, so this is a bit-exact
+port of JAX's *non-partitionable* threefry layout (`jax.random` under
+`jax.threefry_partitionable(False)`): `PRNGKey`, `split`, `fold_in`,
+`uniform` and `randint`.
+
+A key is an int64 tensor whose last axis holds the two uint32 words
+`(..., 2)`; any leading axes are a batch of independent keys, so one call
+does what `jax.vmap` over keys does in the JAX package. int64 is used
+because PyTorch has no shifts on uint32 tensors: every add, shift and
+multiply is masked back to 32 bits. Keys are the only int64 leaves of a pool
+state, which is how `state_dict` finds the leaves to hand out as uint32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+KEY_DTYPE = torch.int64
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Device = Union[str, torch.device, None]
+
+
+def PRNGKey(seed: int, device: Device = None) -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)`: the (2,) key `[0, seed mod 2**32]`.
+
+    Built with fills, not a host copy, so it makes no host-device sync.
+    """
+    key = torch.zeros(2, dtype=KEY_DTYPE, device=device)
+    key[1] = int(seed) & _MASK
+    return key
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k1, k2, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The threefry-2x32 block (jax `threefry2x32_p`), elementwise over
+    broadcast int64 operands holding uint32 values: 20 rounds, 5 key
+    injections."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x0 + k1) & _MASK
+    x1 = (x1 + k2) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def threefry_2x32(key: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """jax `threefry_2x32(key, count)` over the last axis of `count`.
+
+    The count vector is cut into two *halves* (not interleaved pairs), an
+    odd length padded with one zero; the output is `concat(y0, y1)` trimmed
+    back to the count's length. `key` (..., 2) broadcasts against the
+    count's leading axes.
+    """
+    n = count.shape[-1]
+    if n % 2:
+        count = torch.cat([count, count.new_zeros(count.shape[:-1] + (1,))], -1)
+    h = count.shape[-1] // 2
+    k1, k2 = key[..., 0:1], key[..., 1:2]
+    y0, y1 = threefry2x32(k1, k2, count[..., :h], count[..., h:])
+    return torch.cat([y0, y1], -1)[..., :n]
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`jax.random.split`: (..., 2) keys -> (..., num, 2) keys."""
+    counts = torch.arange(num * 2, dtype=KEY_DTYPE, device=key.device)
+    bits = threefry_2x32(key, counts)
+    return bits.reshape(key.shape[:-1] + (num, 2))
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in`: hash `data` (an int, or an int tensor that
+    broadcasts against the key's batch axes) into the key."""
+    if not isinstance(data, torch.Tensor):
+        data = torch.full((), int(data) & _MASK, dtype=KEY_DTYPE,
+                          device=key.device)
+    data = data.to(KEY_DTYPE) & _MASK
+    k1, k2 = key[..., 0], key[..., 1]
+    y0, y1 = threefry2x32(k1, k2, torch.zeros_like(data), data)
+    return torch.stack(torch.broadcast_tensors(y0, y1), -1)
+
+
+def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """32 random bits per element (jax `_threefry_random_bits_original`):
+    (..., 2) keys -> (...,) + shape int64 values in [0, 2**32)."""
+    shape = tuple(shape)
+    size = math.prod(shape)
+    counts = torch.arange(size, dtype=KEY_DTYPE, device=key.device)
+    bits = threefry_2x32(key, counts)
+    return bits.reshape(key.shape[:-1] + shape)
+
+
+def _f32(x: float) -> float:
+    """`x` rounded to float32, held as a Python float (exact in an op)."""
+    return float(np.float32(x))
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int] = (),
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform` in float32 with scalar bounds.
+
+    The mantissa of `1.0` is filled with the top 23 random bits, 1 is
+    subtracted, then the value is scaled by `maxval - minval` (a float32
+    difference, as JAX takes it), shifted by `minval` and clamped below at
+    `minval`.
+    """
+    bits = random_bits(key, shape)
+    one_to_two = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    lo, hi = _f32(minval), _f32(maxval)
+    span = float(np.float32(hi) - np.float32(lo))
+    return ((one_to_two - 1.0) * span + lo).clamp_min(lo)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """`jax.random.randint` into int32 with scalar bounds.
+
+    Two 32-bit draws per element from the two halves of `split(key)`,
+    combined modulo the span in wrapping uint32 arithmetic.
+    """
+    minval, maxval = int(minval), int(maxval)
+    keys = split(key)
+    higher = random_bits(keys[..., 0, :], shape)
+    lower = random_bits(keys[..., 1, :], shape)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    multiplier = (2 ** 16) % span
+    multiplier = (multiplier * multiplier) % span
+    offset = ((higher % span) * multiplier + lower % span) & _MASK
+    return (offset % span + minval).to(torch.int32)
+
+
+__all__ = ["KEY_DTYPE", "PRNGKey", "fold_in", "randint", "random_bits",
+           "split", "threefry_2x32", "uniform"]

@@ -1,0 +1,125 @@
+"""The port's plain megastep (`repro_torch.kernels.envstep.megastep_ref`)
+against the JAX package's jnp reference and its Pallas kernel in interpret
+mode, for the four classic bodies with and without a TimeLimit, at
+B = 200 (not a multiple of the 128-lane block) and K = 8.
+
+The CUDA kernel itself is held against this plain version on the card by
+chip_smoke.py. Here: the dispatch, and that a CPU tensor never reaches it.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.envs.classic as J
+import repro_torch.envs.classic as T
+from repro.kernels.envstep import megastep_pallas
+from repro.kernels.envstep import megastep_ref as jax_megastep_ref
+from repro.kernels.envstep import spec_for as jax_spec_for
+from repro_torch.kernels.envstep import (env_megastep, megastep_cuda,
+                                         megastep_ref, spec_for)
+
+B, K = 200, 8
+MAX_STEPS = {"CartPole": 500, "MountainCar": 200, "Pendulum": 200,
+             "Acrobot": 500}
+STATE_RANGES = {
+    "CartPole": [(-2.4, 2.4), (-2.0, 2.0), (-0.21, 0.21), (-2.0, 2.0)],
+    "MountainCar": [(-1.2, 0.6), (-0.07, 0.07)],
+    "Pendulum": [(-3 * math.pi, 3 * math.pi), (-8.0, 8.0)],
+    "Acrobot": [(-math.pi, math.pi), (-math.pi, math.pi),
+                (-4.0, 4.0), (-4.0, 4.0)],
+}
+#: float atol per body. Acrobot's is looser, for this reason: XLA's CPU
+#: backend fuses some of the RK4's multiply-adds into FMAs and the port
+#: rounds every op apart; the chaotic double pendulum roughly doubles that
+#: one-ulp gap each step, to a few 1e-5 after K = 8 steps (done and
+#: truncated stay exact). Velocities stay moderate for the same reason;
+#: one step at full speed, clamps included, is held at 1e-6 in
+#: tests/test_torch_envs.py.
+ATOL = {"CartPole": 1e-6, "MountainCar": 1e-6, "Pendulum": 1e-6,
+        "Acrobot": 1e-4}
+CASES = [(name, tl) for name in MAX_STEPS for tl in (True, False)]
+
+
+def _inputs(name, time_limit, seed=0):
+    """numpy-seeded (state, actions, fresh, fresh_obs) rows, float32."""
+    rng = np.random.default_rng(seed)
+    o = jax_spec_for(getattr(J, name)()).obs_size
+
+    def states(lead):
+        rows = [rng.uniform(lo, hi, lead + (B,)) for lo, hi in STATE_RANGES[name]]
+        if time_limit:  # counters close enough to the limit to cut inside K
+            rows.append(rng.integers(MAX_STEPS[name] - 2 * K, MAX_STEPS[name],
+                                     lead + (B,)))
+        return np.stack(rows, -2)
+
+    if name == "Pendulum":
+        act = rng.uniform(-3.0, 3.0, (K, B))
+    else:
+        act = rng.integers(0, 2 if name == "CartPole" else 3, (K, B))
+    fresh = states((K,))
+    if time_limit:
+        fresh[:, -1] = 0
+    return [x.astype(np.float32) for x in
+            (states(()), act, fresh, rng.standard_normal((K, o, B)))]
+
+
+def _check(want, got, what, atol=1e-6):
+    names = ("new_state", "obs", "terminal_obs", "reward", "done", "truncated")
+    for n, w, g in zip(names, want, got):
+        w, g = np.asarray(w), g.numpy()
+        assert w.shape == g.shape and g.dtype == np.float32, (what, n)
+        if n in ("done", "truncated"):
+            np.testing.assert_array_equal(g, w, err_msg=f"{what} {n}")
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=atol,
+                                       err_msg=f"{what} {n}")
+
+
+def _run_port(name, time_limit, ops):
+    spec = spec_for(getattr(T, name)())
+    return megastep_ref(spec.step_rows, *map(torch.from_numpy, ops),
+                        max_steps=MAX_STEPS[name] if time_limit else None)
+
+
+@pytest.mark.parametrize("name,time_limit", CASES)
+def test_megastep_ref_matches_jax_ref(name, time_limit):
+    ops = _inputs(name, time_limit)
+    got = _run_port(name, time_limit, ops)
+    want = jax_megastep_ref(jax_spec_for(getattr(J, name)()).step_rows,
+                            *map(jnp.asarray, ops),
+                            max_steps=MAX_STEPS[name] if time_limit else None)
+    _check(want, got, f"{name} tl={time_limit} vs jnp ref", ATOL[name])
+    assert got[4].sum() > 0 or name == "Pendulum" and not time_limit
+    if time_limit:
+        assert got[5].sum() > 0, "the inputs must exercise truncation"
+
+
+@pytest.mark.parametrize("name,time_limit", CASES)
+def test_megastep_ref_matches_pallas_interpret(name, time_limit):
+    ops = _inputs(name, time_limit, seed=1)
+    got = _run_port(name, time_limit, ops)
+    want = megastep_pallas(jax_spec_for(getattr(J, name)()).step_rows,
+                           *map(jnp.asarray, ops),
+                           max_steps=MAX_STEPS[name] if time_limit else None,
+                           interpret=True)
+    _check(want, got, f"{name} tl={time_limit} vs pallas interpret",
+           ATOL[name])
+
+
+def test_dispatch_on_cpu_tensors():
+    """"auto" takes the plain version for CPU tensors; "cuda" raises."""
+    spec = spec_for(T.CartPole())
+    ops = [torch.from_numpy(x) for x in _inputs("CartPole", True)]
+    want = megastep_ref(spec.step_rows, *ops, max_steps=500)
+    got = env_megastep(spec, *ops, max_steps=500, backend="auto")
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        env_megastep(spec, *ops, max_steps=500, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        megastep_cuda(spec.kernel_id, *ops, max_steps=500)
+    with pytest.raises(ValueError, match="unknown backend"):
+        env_megastep(spec, *ops, max_steps=500, backend="pallas")
