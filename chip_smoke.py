@@ -5,28 +5,49 @@
 
 from the repository root, on a machine with a CUDA card and the CUDA
 toolkit. It exits non-zero, printing no result, when there is no card or no
-repository around it. Phases, each printing one JSON line:
+repository around it. Phases, each printing one JSON line with its seconds:
 
   device   the card (and nvidia-smi's name and power limit line)
-  build    nvcc build of csrc/megastep.cu, with ptxas's register report
-  kernel   the CUDA megastep against its plain PyTorch version on the card,
-           four env bodies with and without a TimeLimit, at B = 65,573
-           (a ragged last block) and K = 32
-  main     make_vec(id, 65536, unroll=32).rollout(1024) for the four
-           classic-control ids through the kernel (launch counts), then the
-           same rollout again with host syncs made errors
-  parity   64-step rollouts, backend "cuda" against "torch", on the card
-  golden   the committed tests/golden traces, replayed on the card
-  numbers  env steps/s per id at B = 65,536, CartPole-v1 also at B = 4,096
-  split    the kernel against its plain version on a CartPole-v1 chunk at
-           the main path's shapes, then per-chunk times of the kernel, the
-           fresh-reset precompute and the action sampling
+  build    nvcc builds of csrc/megastep.cu and csrc/raster.cu, in parallel,
+           with ptxas's register and spill report per kernel instantiation
+  kernel   the CUDA megastep against its plain PyTorch version on the card:
+           the four classic bodies at K = 32 and Pong and Breakout at K = 8,
+           each with and without a TimeLimit, at B = 65,573 (a ragged last
+           block)
+  raster   the CUDA rasteriser against its plain version on the card: Pong
+           and Breakout scenes at the pixel path's 32,768 frames of 84×84,
+           a ragged frame count and a non-square frame; kernel and plain
+           times and the bound
+  main     three paths, each with the launch counts set to 0 just before
+           and read just after: make_vec(id, 65536, unroll=32).rollout(1024)
+           for the four classic ids; make_vec(id, 4096, unroll=8)
+           .rollout(1024) for Pong-v0 and Breakout-v0 (megastep and raster);
+           rollout(256, render=True) for the classic ids at B = 65,536.
+           Then the classic and pixel rollouts again with host syncs made
+           errors
+  render_check  both kernels against their plain versions at the render
+           path's shapes: a K = 1 megastep at B = 65,536 per classic id and
+           the raster of the 65,536 frames its new state renders to
+  parity   64-step rollouts, backend "cuda" against "torch", on the card,
+           and a pixel chunk's frames
+  golden   the committed tests/golden traces (classic and arcade), replayed
+           on the card
+  numbers  env steps/s per id: classic at B = 65,536 (CartPole-v1 also at
+           B = 4,096), Pong-v0 and Breakout-v0 at B = 4,096, K = 8
+  split    CartPole-v1: the megastep against its plain version at the main
+           path's shapes, then per-chunk times of the kernel, the
+           fresh-reset precompute and the action sampling. Pong-v0 and
+           Breakout-v0: both kernels against their plain versions on a real
+           chunk, then per-chunk times of the megastep, the two raster
+           launches, the frame-stack select, the precompute and the sampling
 then the kernels line, and last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -37,10 +58,16 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 IDS = ("CartPole-v1", "MountainCar-v0", "Pendulum-v1", "Acrobot-v1")
+PIXEL_IDS = ("Pong-v0", "Breakout-v0")
 GOLDEN_IDS = IDS + ("CartPole-raw", "MountainCar-raw", "Pendulum-raw",
-                    "Acrobot-raw")
+                    "Acrobot-raw", "Pong-v0", "Pong-raw", "Breakout-v0",
+                    "Breakout-raw")
 B_MAIN, B_SMALL, B_CHECK = 65536, 4096, 65536 + 37
 K, STEPS, PARITY_STEPS = 32, 1024, 64
+#: the pixel ids: B keeps one chunk's live tensors near 10 GB; K = 8 is the
+#: JAX package's cap for pixel ids (benchmarks/fig1_env_throughput.py)
+B_PIXEL, K_PIXEL = 4096, 8
+RENDER_STEPS = 256
 RTOL, ATOL = 1e-5, 1e-6           # tests/conftest.py::assert_leaves_match
 GOLDEN_TOL = 1e-4                 # tests/test_golden.py
 TIMED_RUNS = 3
@@ -54,9 +81,17 @@ CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
 #: csrc/megastep.cu: each add, multiply, divide, compare, select, fabsf,
 #: sinf and cosf is one, the TimeLimit fold and the reset selects included
 CARTPOLE_OPS_PER_LANE_STEP = 49
+#: float ops of csrc/raster.cu, counted there: per pixel and live segment
+#: (the coverage, its clips and the running max; sqrtf and each division
+#: one op), per segment staged (dx, dy, the squared length and its clamp)
+#: and per pixel (its centre). Zero-intensity segments are skipped, so
+#: only live ones count.
+RASTER_OPS_PER_PIXEL_SEGMENT = 25
+RASTER_OPS_PER_SEGMENT = 6
+RASTER_OPS_PER_PIXEL = 4
 
-#: uniform ranges of the state rows fed to the kernel check, wide enough
-#: that episodes end, velocities clamp and angles wrap inside K steps
+#: uniform ranges of the classic state rows fed to the kernel check, wide
+#: enough that episodes end, velocities clamp and angles wrap inside K steps
 STATE_RANGES = {
     "CartPole": [(-2.4, 2.4), (-2.0, 2.0), (-0.21, 0.21), (-2.0, 2.0)],
     "MountainCar": [(-1.2, 0.6), (-0.07, 0.07)],
@@ -65,7 +100,8 @@ STATE_RANGES = {
                 (-4 * math.pi, 4 * math.pi), (-9 * math.pi, 9 * math.pi)],
 }
 MAX_STEPS = {"CartPole": 500, "MountainCar": 200, "Pendulum": 200,
-             "Acrobot": 500}
+             "Acrobot": 500, "Pong": 1000, "Breakout": 1000}
+KERNEL_K = {"Pong": K_PIXEL, "Breakout": K_PIXEL}
 
 
 def emit(obj) -> None:
@@ -87,6 +123,24 @@ def megastep_bytes(b: int, k: int, s: int, o: int) -> int:
     return 4 * b * (reads + writes)
 
 
+def raster_work(intens, h: int, w: int):
+    """(bytes, ops) one raster launch must move and do on these scenes:
+    segments and intensities read once, frames written once; ops over the
+    live (nonzero-intensity) segments only."""
+    n, s = intens.shape
+    live = int((intens != 0).sum())
+    ops = (live * h * w * RASTER_OPS_PER_PIXEL_SEGMENT
+           + n * s * RASTER_OPS_PER_SEGMENT + n * h * w * RASTER_OPS_PER_PIXEL)
+    return 4 * (n * s * 6 + n * h * w), ops, live
+
+
+def bound(bytes_moved, ops, bw, flops):
+    """(bound ms, "bytes" or "operations")."""
+    bytes_ms, ops_ms = 1e3 * bytes_moved / bw, 1e3 * ops / flops
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
 def timed(fn, runs, sync):
     """Median seconds of `runs` calls of fn, each ended by `sync()`."""
     out = []
@@ -99,31 +153,120 @@ def timed(fn, runs, sync):
     return statistics.median(out)
 
 
+def event_ms(torch, fn, n, warmup=2):
+    """Mean device ms of fn over n calls, by CUDA events, after warmup."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def counters():
+    from repro_torch.kernels.envstep import megastep_cuda
+    from repro_torch.kernels.raster import rasterize_cuda
+
+    return megastep_cuda, rasterize_cuda
+
+
+def reset_counts():
+    for fn in counters():
+        fn.launches = 0
+
+
+def read_counts():
+    return {"megastep": counters()[0].launches,
+            "raster": counters()[1].launches}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made to compare or time a kernel are not main-path
+    launches: the counts are put back on exit."""
+    saved = read_counts()
+    try:
+        yield
+    finally:
+        megastep, raster = counters()
+        megastep.launches = saved["megastep"]
+        raster.launches = saved["raster"]
+
+
 # -- phases --------------------------------------------------------------------
 
 def phase_device(torch):
+    t0 = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "nvidia_smi": smi, "name": name,
-          "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+    emit({"phase": "device", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, "name": name, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
     return name, smi
+
+
+_BODY = re.compile(r"(CartPole|MountainCar|Pendulum|Acrobot|Pong|Breakout)"
+                   r"ELb([01])")
+
+
+def _entry_name(mangled: str) -> str:
+    m = _BODY.search(mangled)
+    if m:
+        return m[1] + (" +TimeLimit" if m[2] == "1" else "")
+    return "raster_kernel" if "raster_kernel" in mangled else mangled
+
+
+def ptxas_report(logs):
+    """{source: {kernel instantiation: "registers ...; stack/spills"}}."""
+    out = {}
+    for src, log in logs.items():
+        rows, entry = {}, None
+        for ln in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)", ln)
+            if m:
+                entry = _entry_name(m[1])
+            elif entry and ("registers" in ln or "spill" in ln):
+                text = ln.split(":", 1)[-1].strip()
+                rows[entry] = f"{rows[entry]}; {text}" if entry in rows else text
+        out[src] = rows
+    return out
 
 
 def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    logs = build.build(["megastep"])
+    logs = build.build(["megastep", "raster"])
     build.load("megastep")
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    build.load("raster")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(logs), "ptxas": ptxas})
+          "built": sorted(logs), "ptxas": ptxas_report(logs)})
+
+
+def arcade_rows(rng, name, lead, b):
+    """Arcade state rows: balls that reach the paddles, walls and edges
+    inside K steps; Breakout's in and around the brick region over random
+    0/1 boards, a fifth of them down to one brick, so that bricks break
+    and boards clear."""
+    u = lambda lo, hi: rng.uniform(lo, hi, lead + (b,))
+    sign = lambda: (rng.random(lead + (b,)) < 0.5) * 2.0 - 1.0
+    if name == "Pong":
+        return [u(0.0, 1.0), u(0.0, 1.0), sign() * 0.035, u(-0.05, 0.05),
+                u(0.12, 0.88), u(0.12, 0.88)]
+    board = rng.random(lead + (24, b)) < 0.5
+    board &= rng.random(lead + (1, b)) < 0.8
+    board[..., 9, :] = True
+    return [u(0.0, 1.0), u(0.05, 0.5), u(-0.04, 0.04), sign() * u(0.02, 0.04),
+            u(0.14, 0.86), *(board[..., i, :] for i in range(24))]
 
 
 def kernel_inputs(torch, name, time_limit, b, k, seed, device):
@@ -134,12 +277,17 @@ def kernel_inputs(torch, name, time_limit, b, k, seed, device):
 
     body = BODIES[name]
     rng = np.random.default_rng(seed)
-    ranges = STATE_RANGES[name]
+    arcade = name not in STATE_RANGES
 
     def states(lead):
-        rows = [rng.uniform(lo, hi, lead + (b,)) for lo, hi in ranges]
+        if arcade:
+            rows = arcade_rows(rng, name, lead, b)
+        else:
+            rows = [rng.uniform(lo, hi, lead + (b,))
+                    for lo, hi in STATE_RANGES[name]]
         if time_limit:
-            rows.append(rng.integers(0, MAX_STEPS[name], lead + (b,)))
+            lo = MAX_STEPS[name] - 2 * k if arcade else 0
+            rows.append(rng.integers(lo, MAX_STEPS[name], lead + (b,)))
         return np.stack(rows, -2)
 
     if name == "Pendulum":
@@ -155,12 +303,13 @@ def kernel_inputs(torch, name, time_limit, b, k, seed, device):
             for x in ops]
 
 
-def compare(torch, got, want, what):
-    """done and truncated exact, floats within RTOL/ATOL; max abs error."""
+def compare(torch, got, want, what, exact=("done", "truncated")):
+    """The `exact` outputs bit for bit, floats within RTOL/ATOL; max abs
+    error."""
     names = ("new_state", "obs", "terminal_obs", "reward", "done", "truncated")
     err = 0.0
     for n, g, w in zip(names, got, want):
-        if n in ("done", "truncated"):
+        if n in exact:
             if not torch.equal(g, w):
                 raise AssertionError(f"{what}: {n} differs in "
                                      f"{int((g != w).sum())} places")
@@ -171,106 +320,276 @@ def compare(torch, got, want, what):
     return err
 
 
+def _envs():
+    from repro_torch.envs.arcade import Breakout, Pong
+    from repro_torch.envs.classic import Acrobot, CartPole, MountainCar, Pendulum
+
+    return {"CartPole": CartPole(), "MountainCar": MountainCar(),
+            "Pendulum": Pendulum(), "Acrobot": Acrobot(), "Pong": Pong(),
+            "Breakout": Breakout()}
+
+
 def phase_kernel(torch, device):
     from repro_torch.kernels.envstep import BODIES, megastep_cuda, megastep_ref
     from repro_torch.kernels.envstep.specs import spec_for
-    from repro_torch.envs.classic import Acrobot, CartPole, MountainCar, Pendulum
 
-    envs = {"CartPole": CartPole(), "MountainCar": MountainCar(),
-            "Pendulum": Pendulum(), "Acrobot": Acrobot()}
+    t0 = time.perf_counter()
     rows, worst = [], 0.0
-    for i, (name, env) in enumerate(envs.items()):
-        spec = spec_for(env)
-        for time_limit in (True, False):
-            max_steps = MAX_STEPS[name] if time_limit else None
-            ops = kernel_inputs(torch, name, time_limit, B_CHECK, K, i, device)
-            got = megastep_cuda(BODIES[name].kernel_id, *ops,
-                                max_steps=max_steps)
-            want = megastep_ref(spec.step_rows, *ops, max_steps=max_steps)
-            err = compare(torch, got, want, f"{name} max_steps={max_steps}")
-            worst = max(worst, err)
-            rows.append({"body": name, "max_steps": max_steps,
-                         "max_abs_err": err,
-                         "dones": int(got[4].sum()),
-                         "truncations": int(got[5].sum())})
-    emit({"phase": "kernel", "B": B_CHECK, "K": K, "rtol": RTOL, "atol": ATOL,
+    with uncounted():
+        for i, (name, env) in enumerate(_envs().items()):
+            spec = spec_for(env)
+            k = KERNEL_K.get(name, K)
+            arcade = name in KERNEL_K
+            exact = ("reward", "done", "truncated") if arcade else (
+                "done", "truncated")
+            for time_limit in (True, False):
+                max_steps = MAX_STEPS[name] if time_limit else None
+                ops = kernel_inputs(torch, name, time_limit, B_CHECK, k, i,
+                                    device)
+                got = megastep_cuda(BODIES[name].kernel_id, *ops,
+                                    max_steps=max_steps)
+                want = megastep_ref(spec.step_rows, *ops, max_steps=max_steps)
+                err = compare(torch, got, want,
+                              f"{name} max_steps={max_steps}", exact)
+                worst = max(worst, err)
+                case = {"body": name, "max_steps": max_steps, "K": k,
+                        "max_abs_err": err, "dones": int(got[4].sum()),
+                        "truncations": int(got[5].sum())}
+                if arcade:
+                    case["reward_sum"] = float(got[3].sum())
+                    if name == "Breakout":
+                        case["bricks_broken"] = int((got[3] >= 1).sum())
+                        case["boards_cleared"] = int((got[3] >= 5).sum())
+                rows.append(case)
+    emit({"phase": "kernel", "seconds": time.perf_counter() - t0,
+          "B": B_CHECK, "rtol": RTOL, "atol": ATOL,
+          "exact": "done, truncated; reward too for Pong and Breakout",
           "cases": rows})
     return worst
 
 
-def phase_main(torch, device, sync):
-    import repro_torch
-    from repro_torch import random as R
-    from repro_torch.kernels.envstep import megastep_cuda
+def arcade_scenes(torch, name, n, seed, device):
+    """(segs (n, S, 5), intens (n, S)) of numpy-seeded Pong or Breakout
+    states, built by the env's own `scene` on the card."""
+    import numpy as np
 
-    pools, rows = {}, []
-    key = R.PRNGKey(0, device)
-    megastep_cuda.launches = 0
-    for env_id in IDS:
-        pool = repro_torch.make_vec(env_id, B_MAIN, unroll=K, device=device)
-        pool.reset(0)
-        before = megastep_cuda.launches
-        t0 = time.perf_counter()
-        rew, eps, _ = pool.rollout(STEPS, key)
-        sync()
-        seconds = time.perf_counter() - t0
-        launches = megastep_cuda.launches - before
-        if launches != STEPS // K:
-            raise AssertionError(f"{env_id}: {launches} megastep launches in "
-                                 f"a {STEPS}-step rollout, want {STEPS // K}")
-        check_rollout(torch, env_id, rew, eps)
-        pools[env_id] = pool
-        rows.append({"id": env_id, "backend": pool.backend,
-                     "launches": launches, "first_rollout_s": seconds,
-                     "episodes": int(eps.sum()),
-                     "mean_return_per_step": float(rew.sum()) / (B_MAIN * STEPS)})
-    main_launches = megastep_cuda.launches
+    from repro_torch.kernels.envstep.specs import spec_for
 
-    # Steady state with every host sync an error: the port's counterpart of
-    # the JAX package's zero-host-transfer check on the compiled rollout.
-    for env_id, pool in pools.items():
-        if device.type == "cuda":
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = pool.rollout(STEPS, key)
-        finally:
-            if device.type == "cuda":
-                torch.cuda.set_sync_debug_mode(0)
-        check_rollout(torch, env_id, out[0], out[1])
-    emit({"phase": "main", "B": B_MAIN, "K": K, "steps": STEPS, "rows": rows,
-          "megastep_launches": main_launches, "sync_free_steady_state": True})
-    return pools, main_launches
+    env = _envs()[name]
+    rows = np.stack(arcade_rows(np.random.default_rng(seed), name, (), n))
+    state = spec_for(env).unflatten(
+        torch.as_tensor(rows, dtype=torch.float32, device=device))
+    segs, intens = env.scene(state)
+    return segs.contiguous(), intens.contiguous()
 
 
-def check_rollout(torch, env_id, rew, eps):
-    if rew.shape != (B_MAIN,) or eps.shape != (B_MAIN,):
+def random_scenes(torch, n, s, seed, device):
+    """Random capsules, segment 0 a dot and the last one padding."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    segs = torch.rand((n, s, 5), generator=g, device=device)
+    segs[..., 4] *= 0.05
+    segs[:, 0, 2:4] = segs[:, 0, 0:2]
+    intens = torch.rand((n, s), generator=g, device=device)
+    intens[:, -1] = 0.0
+    return segs.contiguous(), intens.contiguous()
+
+
+def raster_check(torch, segs, intens, h, w, what):
+    from repro_torch.kernels.raster import rasterize_cuda, rasterize_ref
+
+    got = rasterize_cuda(segs, intens, h, w)
+    want = rasterize_ref(segs, intens, h, w)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                               msg=lambda m: f"raster {what}: {m}")
+    return float((got - want).abs().max()), got
+
+
+def raster_times(torch, segs, intens, h, w, bw, flops):
+    from repro_torch.kernels.raster import rasterize_cuda, rasterize_ref
+
+    ms = event_ms(torch, lambda: rasterize_cuda(segs, intens, h, w), 20)
+    plain_ms = event_ms(torch, lambda: rasterize_ref(segs, intens, h, w), 2,
+                        warmup=1)
+    bytes_moved, ops, live = raster_work(intens, h, w)
+    bound_ms, bound_by = bound(bytes_moved, ops, bw, flops)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": bytes_moved, "ops": ops,
+            "live_segments": live}
+
+
+def phase_raster(torch, device, bw, flops):
+    t0 = time.perf_counter()
+    frames = K_PIXEL * B_PIXEL
+    cases, worst = [], 0.0
+    with uncounted():
+        for i, (what, n, s, h, w) in enumerate((
+                ("Pong scenes", frames, 4, 84, 84),
+                ("Breakout scenes", frames, 26, 84, 84),
+                ("ragged frame count", frames + 37, 5, 84, 84),
+                ("non-square frame", 517, 7, 60, 100))):
+            if what.startswith(("Pong", "Breakout")):
+                segs, intens = arcade_scenes(torch, what.split()[0], n, i,
+                                             device)
+            else:
+                segs, intens = random_scenes(torch, n, s, i, device)
+            err, out = raster_check(torch, segs, intens, h, w, what)
+            if not bool(out.max() > 0.5):
+                raise AssertionError(f"raster {what}: nothing drawn")
+            worst = max(worst, err)
+            case = {"case": what, "frames": n, "S": s, "H": h, "W": w,
+                    "max_abs_err": err}
+            if i < 2:
+                case.update(raster_times(torch, segs, intens, h, w, bw,
+                                         flops))
+            cases.append(case)
+    emit({"phase": "raster", "seconds": time.perf_counter() - t0,
+          "rtol": RTOL, "atol": ATOL, "cases": cases,
+          "clock": "CUDA events: kernel over 20 launches, plain over 2"})
+    return worst
+
+
+def check_rollout(torch, env_id, rew, eps, b):
+    if rew.shape != (b,) or eps.shape != (b,):
         raise AssertionError(f"{env_id}: rollout shapes {rew.shape}, {eps.shape}")
     if not bool(torch.isfinite(rew).all()) or int(eps.min()) < 0:
         raise AssertionError(f"{env_id}: non-finite returns or negative "
                              "episode counts")
 
 
+def drive(torch, sync, env_id, b, unroll, steps, key, device, want,
+          render=False):
+    """One rollout through `make_vec`; the launch counts of that rollout
+    alone must equal `want`."""
+    import repro_torch
+
+    pool = repro_torch.make_vec(env_id, b, unroll=unroll, device=device)
+    before = read_counts()
+    t0 = time.perf_counter()
+    rew, eps, last = pool.rollout(steps, key, render=render)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = {n: read_counts()[n] - before[n] for n in before}
+    if launches != want:
+        raise AssertionError(f"{env_id}: launches {launches} in a {steps}-step"
+                             f" rollout (render={render}), want {want}")
+    check_rollout(torch, env_id, rew, eps, b)
+    row = {"id": env_id, "B": b, "unroll": unroll, "steps": steps,
+           "backend": pool.backend, "launches": launches,
+           "first_rollout_s": seconds, "episodes": int(eps.sum()),
+           "mean_return_per_step": float(rew.sum()) / (b * steps)}
+    if render:
+        h, w = pool.env.unwrapped.frame_shape
+        if last.shape != (b, h, w) or not bool(
+                ((last >= 0) & (last <= 1)).all()) or not bool(last.max() > 0):
+            raise AssertionError(f"{env_id}: render rollout's last frame is "
+                                 f"{tuple(last.shape)}, outside [0, 1] or blank")
+        row["last_frame_mean"] = float(last.mean())
+    return pool, row
+
+
+def phase_main(torch, device, sync):
+    from repro_torch import random as R
+
+    t0 = time.perf_counter()
+    key = R.PRNGKey(0, device)
+    pools, rows, paths = {}, [], {}
+
+    # classic control (PR 11's path): megastep only
+    reset_counts()
+    for env_id in IDS:
+        pools[env_id], row = drive(torch, sync, env_id, B_MAIN, K, STEPS, key,
+                                   device, {"megastep": STEPS // K,
+                                            "raster": 0})
+        rows.append(row)
+    paths["classic"] = read_counts()
+
+    # the pixel path: per chunk one megastep and two raster launches, and
+    # one raster launch for the reset's frames
+    reset_counts()
+    for env_id in PIXEL_IDS:
+        chunks = STEPS // K_PIXEL
+        pools[env_id], row = drive(torch, sync, env_id, B_PIXEL, K_PIXEL,
+                                   STEPS, key, device,
+                                   {"megastep": chunks,
+                                    "raster": 2 * chunks + 1})
+        rows.append(row)
+    paths["pixel"] = read_counts()
+
+    # render mode: one fused step and one frame per step, and the first
+    # frame of the reset
+    reset_counts()
+    render_pools = {}
+    for env_id in IDS:
+        render_pools[env_id], row = drive(
+            torch, sync, env_id, B_MAIN, K, RENDER_STEPS, key, device,
+            {"megastep": RENDER_STEPS, "raster": RENDER_STEPS + 1},
+            render=True)
+        rows.append(row)
+    paths["render"] = read_counts()
+
+    # Steady state with every host sync an error: the port's counterpart of
+    # the JAX package's zero-host-transfer check on the compiled rollout.
+    for env_id, pool in pools.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pool.rollout(STEPS, key)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check_rollout(torch, env_id, out[0], out[1], pool.num_envs)
+    launches = {n: sum(p[n] for p in paths.values()) for n in
+                ("megastep", "raster")}
+    emit({"phase": "main", "seconds": time.perf_counter() - t0, "rows": rows,
+          "launches_per_path": paths, "launches": launches,
+          "sync_free_steady_state": list(pools)})
+    return pools, render_pools, launches
+
+
 def phase_parity(torch, device):
     import repro_torch
     from repro_torch import random as R
+    from repro_torch.core.spaces import sample_batch
 
+    t0 = time.perf_counter()
     rows = []
     key = R.PRNGKey(1, device)
-    for env_id in IDS:
-        out = {}
+    for env_id in IDS + PIXEL_IDS:
+        pixel = env_id in PIXEL_IDS
+        b, k = (B_PIXEL, K_PIXEL) if pixel else (B_MAIN, K)
+        out, chunk = {}, {}
         for backend in ("cuda", "torch"):
-            pool = repro_torch.make_vec(env_id, B_MAIN, backend=backend,
-                                        unroll=K, device=device)
+            pool = repro_torch.make_vec(env_id, b, backend=backend, unroll=k,
+                                        device=device)
             out[backend] = pool.rollout(PARITY_STEPS, key)
+            if pixel:       # one chunk's frames, from the same carry
+                h = pool.xla()
+                acts = sample_batch(pool.action_space, R.fold_in(
+                    key, torch.arange(k, device=device)), b)
+                chunk[backend] = h.step_many(h.init(key), acts)[1]
         rew_c, eps_c, _ = out["cuda"]
         rew_t, eps_t, _ = out["torch"]
         if not torch.equal(eps_c, eps_t):
             raise AssertionError(f"{env_id}: episode counts differ in "
                                  f"{int((eps_c != eps_t).sum())} lanes")
         torch.testing.assert_close(rew_c, rew_t, rtol=RTOL, atol=ATOL)
-        rows.append({"id": env_id, "episodes": int(eps_c.sum()),
-                     "max_abs_err_sum_reward": float((rew_c - rew_t).abs().max())})
-    emit({"phase": "parity", "B": B_MAIN, "steps": PARITY_STEPS, "rows": rows})
+        row = {"id": env_id, "B": b, "episodes": int(eps_c.sum()),
+               "max_abs_err_sum_reward": float((rew_c - rew_t).abs().max())}
+        if pixel:
+            c, t = chunk["cuda"], chunk["torch"]
+            err = 0.0
+            for what, g, w in (("obs", c.obs, t.obs),
+                               ("terminal_obs", c.info["terminal_obs"],
+                                t.info["terminal_obs"])):
+                torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL,
+                                           msg=lambda m: f"{env_id} {what}: {m}")
+                err = max(err, float((g - w).abs().max()))
+            for what in ("reward", "done"):
+                if not torch.equal(getattr(c, what), getattr(t, what)):
+                    raise AssertionError(f"{env_id}: chunk {what} differs")
+            row["chunk_frames_max_abs_err"] = err
+            del chunk
+        rows.append(row)
+    emit({"phase": "parity", "seconds": time.perf_counter() - t0,
+          "steps": PARITY_STEPS, "rows": rows})
 
 
 def phase_golden(device, backend):
@@ -281,6 +600,7 @@ def phase_golden(device, backend):
     from repro_torch import random as R
     from repro_torch.core.spaces import sample_batch
 
+    t0 = time.perf_counter()
     worst = {}
     for env_id in GOLDEN_IDS:
         want = json.loads((ROOT / "tests" / "golden" / f"{env_id}.json")
@@ -290,6 +610,9 @@ def phase_golden(device, backend):
         h = pool.xla()
         key = R.PRNGKey(sum(map(ord, env_id)), device)
         ps = h.init(key)
+        np.testing.assert_allclose(float(ps.obs.double().sum()),
+                                   want["reset_obs_sum"], rtol=GOLDEN_TOL,
+                                   atol=GOLDEN_TOL, err_msg=env_id)
         rows = []
         for t in range(want["steps"]):
             a = sample_batch(pool.action_space, R.fold_in(key, 1000 + t), b)
@@ -300,71 +623,119 @@ def phase_golden(device, backend):
         np.testing.assert_allclose(rows, want["rows"], rtol=GOLDEN_TOL,
                                    atol=GOLDEN_TOL, err_msg=env_id)
         worst[env_id] = float(np.abs(np.subtract(rows, want["rows"])).max())
-    emit({"phase": "golden", "backend": backend, "max_abs_err": worst})
+    emit({"phase": "golden", "seconds": time.perf_counter() - t0,
+          "backend": backend, "max_abs_err": worst})
 
 
 def phase_numbers(device, pools, sync):
     import repro_torch
     from repro_torch import random as R
 
+    t0 = time.perf_counter()
     key = R.PRNGKey(2, device)
     rows = []
-    runs = [(env_id, B_MAIN, pool) for env_id, pool in pools.items()]
+    runs = [(env_id, pool) for env_id, pool in pools.items()]
     small = repro_torch.make_vec("CartPole-v1", B_SMALL, unroll=K, device=device)
     small.rollout(STEPS, key)
-    runs.append(("CartPole-v1", B_SMALL, small))
-    for env_id, b, pool in runs:
+    runs.append(("CartPole-v1", small))
+    for env_id, pool in runs:
         sec = timed(lambda: pool.rollout(STEPS, key), TIMED_RUNS, sync)
-        rows.append({"id": env_id, "B": b, "steps": STEPS, "unroll": K,
-                     "seconds_median": sec, "env_steps_per_s": b * STEPS / sec})
-    emit({"phase": "numbers", "timed_runs": TIMED_RUNS, "clock":
+        b = pool.num_envs
+        rows.append({"id": env_id, "B": b, "steps": STEPS,
+                     "unroll": pool.unroll, "seconds_median": sec,
+                     "env_steps_per_s": b * STEPS / sec})
+    emit({"phase": "numbers", "seconds": time.perf_counter() - t0,
+          "timed_runs": TIMED_RUNS, "clock":
           "host perf_counter around rollout + synchronize", "rows": rows})
-    return {r["id"]: r for r in rows if r["B"] == B_MAIN}
+    return {r["id"]: r for r in rows[:-1]}      # the main pools' rows
+
+
+def chunk_ops(torch, pool, state, k, key, device):
+    """One fused chunk's megastep inputs from the pool's `state`, built as
+    its step builds them: (core, spec, max_steps, ops)."""
+    from repro_torch import random as R
+    from repro_torch.core.spaces import sample_batch
+    from repro_torch.kernels.envstep import fresh_rows
+    from repro_torch.kernels.envstep.ops import _resolve, state_rows
+
+    core, spec, max_steps, num_stack, _ = _resolve(pool.env)
+    steps = torch.arange(1, k + 1, device=device)
+    acts = sample_batch(pool.action_space, R.fold_in(key, steps),
+                        pool.num_envs)     # (K, B), or (K, B, 1) if continuous
+    acts = acts.reshape(k, pool.num_envs).to(torch.float32).contiguous()
+    _, fresh, fobs = fresh_rows(pool.env, state.key, k)
+    inner = state.inner.inner if num_stack else state.inner
+    rows = state_rows(spec, max_steps, inner).contiguous()
+    return core, spec, max_steps, (rows, acts, fresh, fobs)
+
+
+def phase_render_check(torch, device, pools):
+    """Both kernels against their plain versions at the render path's own
+    shapes: per classic id, a K = 1 megastep at B = 65,536 from a state 16
+    steps into the render pool's rollout, and the raster of the frames that
+    step's new state renders to."""
+    from repro_torch import random as R
+    from repro_torch.core.spaces import sample_batch
+    from repro_torch.kernels.envstep import megastep_cuda, megastep_ref
+
+    t0 = time.perf_counter()
+    key = R.PRNGKey(4, device)
+    rows, mega_err, raster_err = [], 0.0, 0.0
+    with uncounted():
+        for env_id, pool in pools.items():
+            h = pool.xla()
+            ps = h.init(key)
+            for t in range(16):
+                k = R.fold_in(key, t)
+                ps, _ = h.step(ps, sample_batch(pool.action_space, k,
+                                                pool.num_envs), k)
+            core, spec, max_steps, ops = chunk_ops(
+                torch, pool, ps.env_state, 1, R.fold_in(key, 99), device)
+            got = megastep_cuda(spec.kernel_id, *ops, max_steps=max_steps)
+            m_err = compare(torch, got, megastep_ref(
+                spec.step_rows, *ops, max_steps=max_steps),
+                f"{env_id} render-path step B={pool.num_envs} K=1")
+            base = core.unwrapped
+            segs, intens = base.scene(
+                spec.unflatten(got[0][:spec.state_size]))
+            r_err, frames = raster_check(
+                torch, segs.contiguous(), intens.contiguous(),
+                *base.frame_shape, f"{env_id} render-path frames")
+            if not bool(frames.max() > 0.5):
+                raise AssertionError(f"{env_id}: render-path frames blank")
+            mega_err, raster_err = max(mega_err, m_err), max(raster_err, r_err)
+            rows.append({"id": env_id, "B": pool.num_envs, "K": 1,
+                         "frames": intens.shape[0], "S": intens.shape[1],
+                         "megastep_max_abs_err": m_err,
+                         "raster_max_abs_err": r_err})
+    emit({"phase": "render_check", "seconds": time.perf_counter() - t0,
+          "rtol": RTOL, "atol": ATOL, "rows": rows})
+    return mega_err, raster_err
 
 
 def phase_split(torch, device, pool, sync, numbers):
     """Per-chunk cost of each layer of a fused CartPole-v1 chunk."""
     from repro_torch import random as R
     from repro_torch.core.spaces import sample_batch
-    from repro_torch.kernels.envstep import (fresh_rows, lookup, megastep_cuda,
+    from repro_torch.kernels.envstep import (fresh_rows, megastep_cuda,
                                              megastep_ref)
-    from repro_torch.kernels.envstep.ops import state_rows
 
+    t0 = time.perf_counter()
     env = pool.env
-    spec, max_steps = lookup(env)
     key = R.PRNGKey(3, device)
     state = pool.xla().init(R.PRNGKey(0, device)).env_state
-    acts = sample_batch(pool.action_space,
-                        R.fold_in(key, torch.arange(1, K + 1, device=device)),
-                        B_MAIN).to(torch.float32).contiguous()
-    _, fresh, fobs = fresh_rows(env, state.key, K)
-    rows = state_rows(spec, max_steps, state.inner).contiguous()
-    ops = (rows, acts, fresh, fobs)
+    _, spec, max_steps, ops = chunk_ops(torch, pool, state, K, key, device)
 
-    launches = megastep_cuda.launches
-    # the kernel against its plain version at the main path's own shapes
-    err = compare(torch, megastep_cuda(spec.kernel_id, *ops,
-                                       max_steps=max_steps),
-                  megastep_ref(spec.step_rows, *ops, max_steps=max_steps),
-                  f"CartPole-v1 main-path chunk B={B_MAIN}")
-    n = 50
-    for _ in range(3):
-        megastep_cuda(spec.kernel_id, *ops, max_steps=max_steps)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        megastep_cuda(spec.kernel_id, *ops, max_steps=max_steps)
-    end.record()
-    sync()
-    kernel_ms = start.elapsed_time(end) / n
-    start.record()
-    for _ in range(5):
-        megastep_ref(spec.step_rows, *ops, max_steps=max_steps)
-    end.record()
-    sync()
-    plain_ms = start.elapsed_time(end) / 5
-    megastep_cuda.launches = launches        # timing launches are not counted
+    with uncounted():
+        # the kernel against its plain version at the main path's own shapes
+        err = compare(torch, megastep_cuda(spec.kernel_id, *ops,
+                                           max_steps=max_steps),
+                      megastep_ref(spec.step_rows, *ops, max_steps=max_steps),
+                      f"CartPole-v1 main-path chunk B={B_MAIN}")
+        kernel_ms = event_ms(torch, lambda: megastep_cuda(
+            spec.kernel_id, *ops, max_steps=max_steps), 50, warmup=3)
+        plain_ms = event_ms(torch, lambda: megastep_ref(
+            spec.step_rows, *ops, max_steps=max_steps), 5, warmup=0)
 
     steps = torch.arange(1, K + 1, device=device)
     precompute_ms = 1e3 * timed(lambda: fresh_rows(env, state.key, K), 5, sync)
@@ -372,7 +743,8 @@ def phase_split(torch, device, pool, sync, numbers):
         lambda: sample_batch(pool.action_space, R.fold_in(key, steps), B_MAIN),
         5, sync)
     chunk_ms = 1e3 * numbers["CartPole-v1"]["seconds_median"] / (STEPS // K)
-    emit({"phase": "split", "id": "CartPole-v1", "B": B_MAIN, "K": K,
+    emit({"phase": "split", "seconds": time.perf_counter() - t0,
+          "id": "CartPole-v1", "B": B_MAIN, "K": K,
           "max_abs_err_vs_plain": err,
           "per_chunk_ms": {"rollout_chunk": chunk_ms, "kernel": kernel_ms,
                            "fresh_reset_precompute": precompute_ms,
@@ -380,6 +752,84 @@ def phase_split(torch, device, pool, sync, numbers):
           "clock": "kernel: CUDA events over 50 launches; others: host "
                    "perf_counter + synchronize, median of 5"})
     return kernel_ms, plain_ms, spec, err
+
+
+def phase_pixel_split(torch, device, env_id, pool, sync, numbers, bw, flops):
+    """Both kernels against their plain versions on a real chunk of a pixel
+    id, then the per-chunk cost of each layer of that chunk."""
+    from repro_torch import random as R
+    from repro_torch.core.spaces import sample_batch
+    from repro_torch.kernels.envstep import (fresh_rows, megastep_cuda,
+                                             megastep_ref)
+    from repro_torch.kernels.envstep.ops import _render_obs_rows, _stack_frames
+    from repro_torch.kernels.raster import rasterize_cuda
+
+    t0 = time.perf_counter()
+    env = pool.env
+    key = R.PRNGKey(3, device)
+    state = pool.xla().init(R.PRNGKey(0, device)).env_state
+    core, spec, max_steps, ops = chunk_ops(torch, pool, state, K_PIXEL, key,
+                                           device)
+    base = core.unwrapped
+    h, w = base.frame_shape
+    fobs = ops[3]
+    steps = torch.arange(1, K_PIXEL + 1, device=device)
+
+    def scenes(obs_rows):
+        segs, intens = base.scene(spec.unflatten(obs_rows))
+        return (segs.reshape(-1, *segs.shape[-2:]).contiguous(),
+                intens.reshape(-1, intens.shape[-1]).contiguous())
+
+    with uncounted():
+        got = megastep_cuda(spec.kernel_id, *ops, max_steps=max_steps)
+        mega_err = compare(torch, got, megastep_ref(spec.step_rows, *ops,
+                                                    max_steps=max_steps),
+                           f"{env_id} main-path chunk B={B_PIXEL}",
+                           ("reward", "done", "truncated"))
+        pre_scene, fresh_scene = scenes(got[2]), scenes(fobs)
+        raster_err = 0.0
+        for what, sc in (("stepped", pre_scene), ("fresh", fresh_scene)):
+            raster_err = max(raster_err, raster_check(
+                torch, *sc, h, w, f"{env_id} chunk {what} scenes")[0])
+        mega_ms = event_ms(torch, lambda: megastep_cuda(
+            spec.kernel_id, *ops, max_steps=max_steps), 50, warmup=3)
+        mega_plain_ms = event_ms(torch, lambda: megastep_ref(
+            spec.step_rows, *ops, max_steps=max_steps), 3, warmup=0)
+        raster = raster_times(torch, *pre_scene, h, w, bw, flops)
+        two_raster_ms = event_ms(torch, lambda: [
+            rasterize_cuda(*sc, h, w) for sc in (pre_scene, fresh_scene)], 10)
+        pre = _render_obs_rows(core, spec, got[2], "cuda")
+        fresh_px = _render_obs_rows(core, spec, fobs, "cuda")
+    done = got[4].to(torch.bool)
+    frames = state.inner.frames
+    select_ms = 1e3 * timed(lambda: _stack_frames(frames, pre, fresh_px, done),
+                            5, sync)
+    precompute_ms = 1e3 * timed(lambda: fresh_rows(env, state.key, K_PIXEL),
+                                5, sync)
+    sampling_ms = 1e3 * timed(
+        lambda: sample_batch(pool.action_space, R.fold_in(key, steps),
+                             B_PIXEL), 5, sync)
+    chunk_ms = 1e3 * numbers[env_id]["seconds_median"] / (STEPS // K_PIXEL)
+    mega_bytes = megastep_bytes(B_PIXEL, K_PIXEL, spec.state_size + 1,
+                                spec.obs_size)
+    emit({"phase": "split", "seconds": time.perf_counter() - t0,
+          "id": env_id, "B": B_PIXEL, "K": K_PIXEL,
+          "max_abs_err_vs_plain": {"megastep": mega_err, "raster": raster_err},
+          "per_chunk_ms": {"rollout_chunk": chunk_ms, "megastep": mega_ms,
+                           "two_raster_launches": two_raster_ms,
+                           "frame_stack_select": select_ms,
+                           "fresh_reset_precompute": precompute_ms,
+                           "action_sampling": sampling_ms},
+          "megastep": {"ms": mega_ms, "plain_ms": mega_plain_ms,
+                       "bytes": mega_bytes,
+                       "bytes_bound_ms": 1e3 * mega_bytes / bw},
+          "raster_stepped_scenes": raster,
+          "clock": "kernels: CUDA events (megastep over 50 launches, the two "
+                   "raster launches over 10 pairs); others: host "
+                   "perf_counter + synchronize, median of 5"})
+    return {"raster": raster, "megastep_err": mega_err,
+            "raster_err": raster_err, "frames": pre_scene[1].shape[0],
+            "S": pre_scene[1].shape[1]}
 
 
 def main() -> int:
@@ -399,33 +849,64 @@ def main() -> int:
     name, smi = phase_device(torch)
     bw, flops = card_rates(name)
     phase_build()
-    max_err = phase_kernel(torch, device)
-    pools, launches = phase_main(torch, device, sync)
+    mega_err = phase_kernel(torch, device)
+    raster_err = phase_raster(torch, device, bw, flops)
+    pools, render_pools, launches = phase_main(torch, device, sync)
+    errs = phase_render_check(torch, device, render_pools)
+    mega_err, raster_err = max(mega_err, errs[0]), max(raster_err, errs[1])
+    del render_pools
     phase_parity(torch, device)
     phase_golden(device, "cuda")
     numbers = phase_numbers(device, pools, sync)
     kernel_ms, plain_ms, spec, split_err = phase_split(
         torch, device, pools["CartPole-v1"], sync, numbers)
-    max_err = max(max_err, split_err)
+    mega_err = max(mega_err, split_err)
+    pixel = {}
+    for env_id in PIXEL_IDS:
+        pixel[env_id] = phase_pixel_split(torch, device, env_id, pools[env_id],
+                                          sync, numbers, bw, flops)
+        mega_err = max(mega_err, pixel[env_id]["megastep_err"])
+        raster_err = max(raster_err, pixel[env_id]["raster_err"])
 
     sp = spec.state_size + 1
     bytes_moved = megastep_bytes(B_MAIN, K, sp, spec.obs_size)
-    bytes_ms = 1e3 * bytes_moved / bw
-    ops_ms = 1e3 * B_MAIN * K * CARTPOLE_OPS_PER_LANE_STEP / flops
+    mega_bound, mega_by = bound(bytes_moved, B_MAIN * K *
+                                CARTPOLE_OPS_PER_LANE_STEP, bw, flops)
+    pong = pixel["Pong-v0"]
     emit({"kernels": [{
         "name": "megastep",
         "route": "cuda",
         "source": "src/repro_torch/csrc/megastep.cu",
         "replaces": "src/repro/kernels/envstep/megastep.py:80",
-        "launches": launches,
-        "max_abs_err": max_err,
+        "launches": launches["megastep"],
+        "max_abs_err": mega_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": mega_bound,
+        "bound_by": mega_by,
         "library_ms": None,
+        "library": "none: no single PyTorch call computes it",
         "shape": {"id": "CartPole-v1", "B": B_MAIN, "K": K,
                   "bytes": bytes_moved},
+        "card": smi,
+    }, {
+        "name": "raster",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/raster.cu",
+        "replaces": "src/repro/kernels/raster/raster.py:57",
+        "launches": launches["raster"],
+        "max_abs_err": raster_err,
+        "ms": pong["raster"]["ms"],
+        "plain_ms": pong["raster"]["plain_ms"],
+        "bound_ms": pong["raster"]["bound_ms"],
+        "bound_by": pong["raster"]["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes it",
+        "shape": {"id": "Pong-v0", "frames": pong["frames"], "S": pong["S"],
+                  "H": 84, "W": 84,
+                  "live_segments": pong["raster"]["live_segments"],
+                  "bytes": pong["raster"]["bytes"],
+                  "ops": pong["raster"]["ops"]},
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

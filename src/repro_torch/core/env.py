@@ -32,6 +32,10 @@ class Env:
     Contract:
       reset(keys (..., 2))  -> (state, obs (..., O))
       step(state, action)   -> Timestep over the same lanes
+      render(state)         -> (..., H, W) float32 frames in [0, 1]
+
+    An env with a renderer declares `frame_shape = (H, W)` and a capsule
+    `scene(state)` (see kernels/raster); `render` rasterises it.
     """
 
     observation_space: Space
@@ -42,6 +46,13 @@ class Env:
 
     def step(self, state: Any, action: torch.Tensor) -> Timestep:
         raise NotImplementedError
+
+    def render(self, state: Any) -> torch.Tensor:
+        if not hasattr(self, "scene"):
+            raise NotImplementedError(f"{type(self).__name__} has no renderer")
+        from repro_torch.kernels.raster import render_scene
+
+        return render_scene(*self.scene(state), *self.frame_shape)
 
     def fused_step(self, state: Any, actions: torch.Tensor,
                    num_steps: int = None, *, backend: str = "auto",
@@ -61,6 +72,10 @@ class Env:
     @property
     def name(self) -> str:
         return type(self).__name__
+
+    @property
+    def unwrapped(self) -> "Env":
+        return self
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"{type(self).__name__}()"

@@ -2,10 +2,10 @@
 
 A `Transform` is the data of one wrapper application (`TimeLimit(500)`), so
 the registry builds stacks from it and the fused planner
-(kernels/envstep/specs.py::lookup) reads a built stack back as
-`(core, transforms)` instead of inspecting wrapper classes. Only the
-`TimeLimit` transform is ported so far; the pixel transforms come with the
-pixel slice.
+(kernels/envstep/ops.py::_plan) reads a built stack back as
+`(core, transforms)` instead of inspecting wrapper classes. Each transform
+carries its fusion role, the part of the fused step that models it.
+`FlattenObs` and `RewardScale` come with later slices.
 """
 from __future__ import annotations
 
@@ -15,12 +15,18 @@ from typing import ClassVar, Optional, Tuple, Type
 from repro_torch.core import wrappers as _w
 from repro_torch.core.env import Env
 
+#: fusion roles the megastep planner understands (kernels/envstep/ops.py)
+FUSION_TIME_LIMIT = "time_limit"
+FUSION_PIXELS = "pixels"
+FUSION_FRAME_STACK = "frame_stack"
+
 
 @dataclasses.dataclass(frozen=True)
 class Transform:
     """One declarative wrapper application. Frozen, hashable, rebuildable."""
 
     wrapper: ClassVar[Type[_w.Wrapper]]
+    fusion: ClassVar[Optional[str]] = None
 
     def build(self, env: Env) -> Env:
         return self.wrapper(env, **{f.name: getattr(self, f.name)
@@ -33,6 +39,24 @@ class TimeLimit(Transform):
 
     max_steps: int
     wrapper = _w.TimeLimit
+    fusion = FUSION_TIME_LIMIT
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsToPixels(Transform):
+    """Observe the rendered framebuffer (wrappers.ObsToPixels)."""
+
+    wrapper = _w.ObsToPixels
+    fusion = FUSION_PIXELS
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameStack(Transform):
+    """Stack the last `num_frames` observations (wrappers.FrameStack)."""
+
+    num_frames: int = 4
+    wrapper = _w.FrameStack
+    fusion = FUSION_FRAME_STACK
 
 
 def build_pipeline(env: Env, transforms: Tuple[Transform, ...]) -> Env:
@@ -45,6 +69,8 @@ def build_pipeline(env: Env, transforms: Tuple[Transform, ...]) -> Env:
 #: built wrapper -> its Transform
 _FROM_WRAPPER = {
     _w.TimeLimit: lambda w: TimeLimit(w.max_steps),
+    _w.ObsToPixels: lambda w: ObsToPixels(),
+    _w.FrameStack: lambda w: FrameStack(w.num_frames),
 }
 
 
@@ -68,5 +94,6 @@ def declared_pipeline(env: Env):
     return env, tuple(reversed(transforms))
 
 
-__all__ = ["TimeLimit", "Transform", "build_pipeline", "declared_pipeline",
-           "transform_of"]
+__all__ = ["FUSION_FRAME_STACK", "FUSION_PIXELS", "FUSION_TIME_LIMIT",
+           "FrameStack", "ObsToPixels", "TimeLimit", "Transform",
+           "build_pipeline", "declared_pipeline", "transform_of"]

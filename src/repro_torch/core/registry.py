@@ -1,9 +1,10 @@
 """Environment registry (port of `repro.core.registry`).
 
 Every id is an `EnvSpec`: a core env factory plus a declarative transform
-pipeline. `register_family` derives a family's `-v<N>` (TimeLimit) and
-`-raw` (bare core) ids from one call. The pixel `-px` ids, construction
-kwargs and the legacy `register(name, factory)` shim come with later slices.
+pipeline. `register_family` derives a family's `-v<N>` (TimeLimit, or the
+arcade pixel pipeline) and `-raw` (bare core) ids from one call. The pixel
+`-px` ids, construction kwargs and the legacy `register(name, factory)` shim
+come with later slices.
 """
 from __future__ import annotations
 
@@ -37,11 +38,20 @@ def register_spec(spec: EnvSpec) -> EnvSpec:
 
 
 def register_family(name: str, core_factory: Callable[[], Env], *,
-                    max_steps: int, version: int = 0) -> Tuple[EnvSpec, ...]:
-    """Register `{name}-v{version}` (TimeLimit(max_steps)) and `{name}-raw`."""
+                    max_steps: int, version: int = 0,
+                    obs: str = "state") -> Tuple[EnvSpec, ...]:
+    """Register `{name}-v{version}` and `{name}-raw` (the bare core).
+
+    `-v` is TimeLimit(max_steps); with `obs="pixels"` it is the arcade
+    pipeline TimeLimit -> ObsToPixels -> FrameStack(4).
+    """
+    if obs not in ("state", "pixels"):
+        raise ValueError(f"obs must be 'state' or 'pixels', got {obs!r}")
+    main = (P.TimeLimit(max_steps),)
+    if obs == "pixels":
+        main += (P.ObsToPixels(), P.FrameStack(4))
     return (
-        register_spec(EnvSpec(f"{name}-v{version}", core_factory,
-                              (P.TimeLimit(max_steps),))),
+        register_spec(EnvSpec(f"{name}-v{version}", core_factory, main)),
         register_spec(EnvSpec(f"{name}-raw", core_factory)),
     )
 

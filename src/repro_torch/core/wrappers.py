@@ -1,19 +1,20 @@
-"""Wrappers (port of `repro.core.wrappers`): `TimeLimit`, `AutoReset`, `Vec`.
+"""Wrappers (port of `repro.core.wrappers`): `TimeLimit`, `AutoReset`,
+`Vec`, and the pixel pipeline's `ObsToPixels` and `FrameStack`.
 
 Batch-native over the leading lane axes: where the JAX package composes
 single-env wrappers and `vmap`s the stack, each wrapper here steps all lanes
-at once. `ObsToPixels`, `FrameStack`, `FlattenObs` and `RewardScale` come
-with later slices.
+at once. `FlattenObs` and `RewardScale` come with later slices.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import random as R
 from repro_torch.core.env import Env
-from repro_torch.core.spaces import Space
+from repro_torch.core.spaces import Box, Space
 
 
 class Wrapper(Env):
@@ -31,6 +32,10 @@ class Wrapper(Env):
         return self.env.action_space
 
     @property
+    def unwrapped(self) -> Env:
+        return self.env.unwrapped
+
+    @property
     def name(self) -> str:
         return self.env.name
 
@@ -39,6 +44,9 @@ class Wrapper(Env):
 
     def step(self, state, action):
         return self.env.step(state, action)
+
+    def render(self, state):
+        return self.env.render(state)
 
     def __repr__(self):  # pragma: no cover
         return f"{type(self).__name__}({self.env!r})"
@@ -73,6 +81,9 @@ class TimeLimit(Wrapper):
         info["truncated"] = truncated
         return ts._replace(state=TimeLimitState(ts.state, t),
                            done=ts.done | truncated, info=info)
+
+    def render(self, state: TimeLimitState):
+        return self.env.render(state.inner)
 
 
 class AutoResetState(NamedTuple):
@@ -110,6 +121,9 @@ class AutoReset(Wrapper):
                                  pair[..., 0, :]),
             obs=_where(ts.done, fresh_obs, ts.obs), info=info)
 
+    def render(self, state: AutoResetState):
+        return self.env.render(state.inner)
+
 
 class Vec(Wrapper):
     """`num_envs` lanes of one env stack.
@@ -128,5 +142,68 @@ class Vec(Wrapper):
         return self.env.reset(R.split(key, self.num_envs))
 
 
-__all__ = ["AutoReset", "AutoResetState", "TimeLimit", "TimeLimitState",
-           "Vec", "Wrapper"]
+class ObsToPixels(Wrapper):
+    """Observe the rendered framebuffer (..., H, W) instead of the state:
+    the paper's raw-pixels mode (§IV-C), rendered on the env's device."""
+
+    @property
+    def observation_space(self) -> Box:  # type: ignore[override]
+        h, w = self.env.unwrapped.frame_shape
+        return Box(low=0.0, high=1.0, shape=(h, w))
+
+    def reset(self, keys):
+        state, _ = self.env.reset(keys)
+        return state, self.env.render(state)
+
+    def step(self, state, action):
+        ts = self.env.step(state, action)
+        return ts._replace(obs=self.env.render(ts.state))
+
+
+class FrameStackState(NamedTuple):
+    inner: Any
+    frames: torch.Tensor  # (..., num_frames, H, W), most recent last
+
+
+class FrameStack(Wrapper):
+    """Stack the last `num_frames` observations on a new axis before the
+    frame axes: reset fills the stack with the first observation, each step
+    shifts the oldest out and appends the newest. The frames are
+    (..., N, H, W), most recent last, as the JAX pool's state holds them."""
+
+    def __init__(self, env: Env, num_frames: int = 4):
+        super().__init__(env)
+        self.num_frames = int(num_frames)
+
+    @property
+    def observation_space(self) -> Box:  # type: ignore[override]
+        inner = self.env.observation_space
+        return Box(low=float(np.min(np.asarray(inner.low))),
+                   high=float(np.max(np.asarray(inner.high))),
+                   shape=(self.num_frames,) + tuple(inner.shape),
+                   dtype=inner.dtype)
+
+    def _frame_dims(self) -> int:
+        return len(self.env.observation_space.shape)
+
+    def reset(self, keys):
+        inner, obs = self.env.reset(keys)
+        d = self._frame_dims()
+        lead, frame = obs.shape[:obs.dim() - d], obs.shape[obs.dim() - d:]
+        frames = obs.unsqueeze(-d - 1).expand(
+            lead + (self.num_frames,) + frame).contiguous()
+        return FrameStackState(inner, frames), frames
+
+    def step(self, state: FrameStackState, action):
+        ts = self.env.step(state.inner, action)
+        d = self._frame_dims()
+        frames = torch.cat([state.frames.narrow(-d - 1, 1, self.num_frames - 1),
+                            ts.obs.unsqueeze(-d - 1)], -d - 1)
+        return ts._replace(state=FrameStackState(ts.state, frames), obs=frames)
+
+    def render(self, state: FrameStackState):
+        return self.env.render(state.inner)
+
+
+__all__ = ["AutoReset", "AutoResetState", "FrameStack", "FrameStackState",
+           "ObsToPixels", "TimeLimit", "TimeLimitState", "Vec", "Wrapper"]

@@ -1,10 +1,10 @@
-// Megastep: K fused classic-control environment steps per launch, for sm_90a.
+// Megastep: K fused environment steps per launch, for sm_90a.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/envstep/megastep.py::megastep_pallas (body
 // _megastep_kernel, step order fused_transition; env bodies from
 // src/repro/kernels/envstep/specs.py::_cartpole_rows, _mountain_car_rows,
-// _pendulum_rows, _acrobot_rows).
+// _pendulum_rows, _acrobot_rows, _pong_rows, _breakout_rows).
 //
 // Each step: the env body advances the state, the TimeLimit counter row
 // counts and cuts, and AutoReset selects the precomputed fresh state and
@@ -23,7 +23,10 @@
 // S' state values stay in registers across the K loop, and neighbouring
 // threads touch neighbouring addresses on every load and store, so every
 // access is coalesced. No padding: lanes >= B return at once. The body is a
-// template parameter, so each env compiles to straight-line code.
+// template parameter, so each env compiles to straight-line code. A body
+// whose observation is its new state (kObsIsState: Pong, Breakout) writes
+// no separate observation array; the kernel stores the new state rows as
+// the observation.
 //
 // Numbers: the kernel must give the bits of the plain PyTorch version
 // (kernels/envstep/ref.py) on the card, op by op. So every constant is
@@ -73,6 +76,7 @@ constexpr float kXThreshold = (float)2.4;
 }  // namespace cartpole
 
 struct CartPole {
+  static constexpr bool kObsIsState = false;
   static constexpr int S = 4, O = 4;
   __device__ static void step(const float* s, float a, float* ns, float* ob,
                               float& reward, float& done) {
@@ -110,6 +114,7 @@ constexpr float kForce = (float)0.001, kNegGravity = (float)-0.0025;
 }  // namespace mountain_car
 
 struct MountainCar {
+  static constexpr bool kObsIsState = false;
   static constexpr int S = 2, O = 2;
   __device__ static void step(const float* s, float a, float* ns, float* ob,
                               float& reward, float& done) {
@@ -138,6 +143,7 @@ constexpr float kThdotCost = (float)0.1, kTorqueCost = (float)0.001;
 }  // namespace pendulum
 
 struct Pendulum {
+  static constexpr bool kObsIsState = false;
   static constexpr int S = 2, O = 3;
   __device__ static void step(const float* s, float a, float* ns, float* ob,
                               float& reward, float& done) {
@@ -211,6 +217,7 @@ __device__ __forceinline__ float wrap(float x) {
 }  // namespace acrobot
 
 struct Acrobot {
+  static constexpr bool kObsIsState = false;
   static constexpr int S = 4, O = 6;
   __device__ static void step(const float* s, float a, float* ns, float* ob,
                               float& reward, float& done) {
@@ -245,6 +252,127 @@ struct Acrobot {
   }
 };
 
+// -- Pong (envs/arcade/pong.py) -----------------------------------------------
+namespace pong {
+constexpr double kPaddleHalfD = 0.12, kPlayerXD = 0.92, kOppXD = 0.08;
+constexpr float kPaddleHalf = (float)kPaddleHalfD;
+constexpr float kPaddleHigh = (float)(1.0 - kPaddleHalfD);
+constexpr float kPaddleSpeed = (float)0.05, kOppSpeed = (float)0.03;
+constexpr float kSpin = (float)0.25, kMaxVy = (float)0.05;
+constexpr float kPlayerX = (float)kPlayerXD, kOppX = (float)kOppXD;
+constexpr float kTwoPlayerX = (float)(2.0 * kPlayerXD), kTwoOppX = (float)(2.0 * kOppXD);
+}  // namespace pong
+
+struct Pong {
+  static constexpr bool kObsIsState = true;
+  static constexpr int S = 6, O = 6;
+  __device__ static void step(const float* s, float a, float* ns, float*,
+                              float& reward, float& done) {
+    using namespace pong;
+    const float x = s[0], y = s[1];
+    float vx = s[2], vy = s[3];
+    const float move = a - 1.0f;
+    const float py = clampf(s[4] + mul(move, kPaddleSpeed), kPaddleHalf, kPaddleHigh);
+    float oy = s[5] + clampf(y - s[5], -kOppSpeed, kOppSpeed);
+    oy = clampf(oy, kPaddleHalf, kPaddleHigh);
+    float nx = x + vx, ny = y + vy;
+    // top/bottom wall bounce
+    if (ny < 0.0f || ny > 1.0f) vy = -vy;
+    if (ny < 0.0f) ny = -ny;
+    if (ny > 1.0f) ny = 2.0f - ny;
+    // agent paddle (right plane), then opponent paddle (left plane)
+    if (x < kPlayerX && nx >= kPlayerX && fabsf(ny - py) <= kPaddleHalf) {
+      vy = clampf(vy + mul(ny - py, kSpin), -kMaxVy, kMaxVy);
+      vx = -vx;
+      nx = kTwoPlayerX - nx;
+    }
+    if (x > kOppX && nx <= kOppX && fabsf(ny - oy) <= kPaddleHalf) {
+      vy = clampf(vy + mul(ny - oy, kSpin), -kMaxVy, kMaxVy);
+      vx = -vx;
+      nx = kTwoOppX - nx;
+    }
+    ns[0] = nx;
+    ns[1] = ny;
+    ns[2] = vx;
+    ns[3] = vy;
+    ns[4] = py;
+    ns[5] = oy;
+    reward = (nx < 0.0f ? 1.0f : 0.0f) - (nx > 1.0f ? 1.0f : 0.0f);
+    done = (nx < 0.0f || nx > 1.0f) ? 1.0f : 0.0f;
+  }
+};
+
+// -- Breakout (envs/arcade/breakout.py) ---------------------------------------
+namespace breakout {
+constexpr int kRows = 4, kCols = 6, kCells = kRows * kCols;
+constexpr double kBrickTopD = 0.12, kBrickHD = 0.05, kPaddleYD = 0.92;
+constexpr double kPaddleHalfD = 0.14;
+constexpr float kBrickTop = (float)kBrickTopD, kBrickH = (float)kBrickHD;
+constexpr float kBrickBottom = (float)(kBrickTopD + kRows * kBrickHD);
+constexpr float kPaddleY = (float)kPaddleYD, kTwoPaddleY = (float)(2.0 * kPaddleYD);
+constexpr float kPaddleHalf = (float)kPaddleHalfD;
+constexpr float kPaddleHigh = (float)(1.0 - kPaddleHalfD);
+constexpr float kPaddleSpeed = (float)0.06, kSpin = (float)0.15;
+constexpr float kMaxVx = (float)0.04, kClearBonus = (float)5.0;
+}  // namespace breakout
+
+// The 24-cell board rides in rows 5..28 as 0/1 floats, as the env's int32
+// bricks do. The body packs it into the bits of one integer, so the cell
+// under the ball is found by a shift, not by a loop over 24 cells or an
+// index into a register array (which would put the rows in local memory).
+// The hit is masked exactly as the plain version's (row, col) comparison
+// masks it: a cell only when the ball is in the brick region and
+// floor((ny - top) / h) is a row 0..3 and floor(nx * 6) a column 0..5
+// (nx == 1.0 gives column 6: no cell). `cleared` counts the cells left.
+struct Breakout {
+  static constexpr bool kObsIsState = true;
+  static constexpr int S = 5 + breakout::kCells, O = S;
+  __device__ static void step(const float* s, float a, float* ns, float*,
+                              float& reward, float& done) {
+    using namespace breakout;
+    const float x = s[0], y = s[1];
+    float vx = s[2], vy = s[3];
+    const float move = a - 1.0f;
+    const float px = clampf(s[4] + mul(move, kPaddleSpeed), kPaddleHalf, kPaddleHigh);
+    float nx = x + vx, ny = y + vy;
+    // side walls, then the ceiling
+    if (nx < 0.0f || nx > 1.0f) vx = -vx;
+    if (nx < 0.0f) nx = -nx;
+    if (nx > 1.0f) nx = 2.0f - nx;
+    if (ny < 0.0f) vy = -vy;
+    if (ny < 0.0f) ny = -ny;
+    // paddle bounce (crossing the paddle plane within reach)
+    if (y < kPaddleY && ny >= kPaddleY && fabsf(nx - px) <= kPaddleHalf) {
+      vx = clampf(vx + mul(nx - px, kSpin), -kMaxVx, kMaxVx);
+      vy = -vy;
+      ny = kTwoPaddleY - ny;
+    }
+    unsigned board = 0u;
+#pragma unroll
+    for (int i = 0; i < kCells; ++i) board |= (s[5 + i] > 0.0f ? 1u : 0u) << i;
+    const float cell_r = floorf((ny - kBrickTop) / kBrickH);
+    const float cell_c = floorf(mul(nx, (float)kCols));
+    const bool in_cell = ny >= kBrickTop && ny < kBrickBottom &&
+                         cell_r >= 0.0f && cell_r < (float)kRows &&
+                         cell_c >= 0.0f && cell_c < (float)kCols;
+    const unsigned hit =
+        in_cell ? board & (1u << ((int)cell_r * kCols + (int)cell_c)) : 0u;
+    board &= ~hit;
+    const float broke = hit ? 1.0f : 0.0f;
+    if (hit) vy = -vy;
+    const bool cleared = __popc(board) == 0;
+    ns[0] = nx;
+    ns[1] = ny;
+    ns[2] = vx;
+    ns[3] = vy;
+    ns[4] = px;
+#pragma unroll
+    for (int i = 0; i < kCells; ++i) ns[5 + i] = (board >> i) & 1u ? 1.0f : 0.0f;
+    reward = broke + (cleared ? kClearBonus : 0.0f);
+    done = (cleared || ny > 1.0f) ? 1.0f : 0.0f;
+  }
+};
+
 constexpr int kBlock = 128;
 
 template <class Env, bool kTimeLimit>
@@ -267,8 +395,9 @@ megastep_kernel(const float* __restrict__ state, const float* __restrict__ act,
   for (int r = 0; r < SP; ++r) rows[r] = state[r * b + lane];
 
   for (int t = 0; t < K; ++t) {
-    float ns[S], ob[O], reward, done;
-    Env::step(rows, act[t * b + lane], ns, ob, reward, done);
+    float ns[S], ob_own[Env::kObsIsState ? 1 : O], reward, done;
+    Env::step(rows, act[t * b + lane], ns, ob_own, reward, done);
+    const float* ob = Env::kObsIsState ? ns : ob_own;
     float trunc = 0.0f, tcnt = 0.0f;
     if constexpr (kTimeLimit) {
       tcnt = rows[S] + 1.0f;
@@ -316,7 +445,8 @@ void launch(bool time_limit, int B, int K, int max_steps, const float* state,
 
 }  // namespace
 
-// body: 0 CartPole, 1 MountainCar, 2 Pendulum, 3 Acrobot (megastep.py BODIES);
+// body: 0 CartPole, 1 MountainCar, 2 Pendulum, 3 Acrobot, 4 Pong, 5 Breakout
+// (megastep.py BODIES);
 // max_steps < 0: no TimeLimit. Returns the launch's cudaError_t.
 extern "C" int megastep(int body, int max_steps, int B, int K,
                         const float* state, const float* act,
@@ -341,6 +471,14 @@ extern "C" int megastep(int body, int max_steps, int B, int K,
     case 3:
       launch<Acrobot>(tl, B, K, max_steps, state, act, fresh, fresh_obs,
                       out_state, obs, tobs, rew, done, trunc, s);
+      break;
+    case 4:
+      launch<Pong>(tl, B, K, max_steps, state, act, fresh, fresh_obs,
+                   out_state, obs, tobs, rew, done, trunc, s);
+      break;
+    case 5:
+      launch<Breakout>(tl, B, K, max_steps, state, act, fresh, fresh_obs,
+                       out_state, obs, tobs, rew, done, trunc, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -76,6 +76,7 @@ class Acrobot(Env):
         shape=(6,),
     )
     action_space = Discrete(3)
+    frame_shape = (84, 84)
 
     def reset(self, keys):
         vals = R.uniform(keys, (4,), -0.1, 0.1)
@@ -99,3 +100,19 @@ class Acrobot(Env):
         done = (-torch.cos(theta1) - torch.cos(theta2 + theta1)) > 1.0
         reward = torch.full_like(theta1, -1.0).masked_fill_(done, 0.0)
         return Timestep(new, self._obs(new), reward, done, {})
+
+    # -- rendering (capsule scene; see kernels/raster) -----------------------
+    def scene(self, state: AcrobotState):
+        """Goal line and the two links: (..., 3, 5) and (..., 3)."""
+        from repro_torch.kernels.raster import capsule_scene
+
+        ox, oy = 0.5, 0.45
+        x1 = ox + 0.22 * torch.sin(state.theta1)
+        y1 = oy + 0.22 * torch.cos(state.theta1)
+        x2 = x1 + 0.22 * torch.sin(state.theta1 + state.theta2)
+        y2 = y1 + 0.22 * torch.cos(state.theta1 + state.theta2)
+        return capsule_scene(state.theta1, [
+            (0.1, oy - 0.22, 0.9, oy - 0.22, 0.004),          # goal line
+            (ox, oy, x1, y1, 0.02),
+            (x1, y1, x2, y2, 0.02),
+        ], (0.3, 0.8, 1.0))

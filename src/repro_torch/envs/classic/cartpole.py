@@ -15,6 +15,7 @@ import torch
 from repro_torch import random as R
 from repro_torch.core.env import Env, Timestep
 from repro_torch.core.spaces import Box, Discrete
+from repro_torch.numerics import div as _div
 
 # Gym constants (gym.envs.classic_control.cartpole).
 GRAVITY = 9.8
@@ -27,13 +28,6 @@ FORCE_MAG = 10.0
 TAU = 0.02
 THETA_THRESHOLD = 12 * 2 * math.pi / 360
 X_THRESHOLD = 2.4
-
-
-def _div(x: torch.Tensor, c: float) -> torch.Tensor:
-    """x / c as one IEEE float32 division on every device. PyTorch's CUDA
-    kernel for `tensor / python_float` rounds otherwise, so the divisor
-    goes in as a 0-dim tensor on x's device."""
-    return x / x.new_full((), c)
 
 
 class CartPoleState(NamedTuple):
@@ -50,6 +44,7 @@ class CartPole(Env):
         shape=(4,),
     )
     action_space = Discrete(2)
+    frame_shape = (84, 84)
 
     def reset(self, keys):
         vals = R.uniform(keys, (4,), -0.05, 0.05)
@@ -79,3 +74,18 @@ class CartPole(Env):
         ns = CartPoleState(x, x_dot, theta, theta_dot)
         done = (x.abs() > X_THRESHOLD) | (theta.abs() > THETA_THRESHOLD)
         return Timestep(ns, self._obs(ns), torch.ones_like(x), done, {})
+
+    # -- rendering (capsule scene; see kernels/raster) -----------------------
+    def scene(self, state: CartPoleState):
+        """Track, cart and pole: (..., 3, 5) and (..., 3)."""
+        from repro_torch.kernels.raster import capsule_scene
+
+        cx = 0.5 + _div(state.x, 2 * X_THRESHOLD) * 0.8  # [-2.4,2.4] -> [0.1,0.9]
+        cy = torch.full_like(state.x, 0.75)
+        tip_x = cx + torch.sin(state.theta) * 0.35
+        tip_y = cy - torch.cos(state.theta) * 0.35
+        return capsule_scene(state.x, [
+            (0.05, cy + 0.05, 0.95, cy + 0.05, 0.006),       # track
+            (cx - 0.07, cy, cx + 0.07, cy, 0.035),           # cart
+            (cx, cy, tip_x, tip_y, 0.015),                   # pole
+        ], (0.35, 0.7, 1.0))

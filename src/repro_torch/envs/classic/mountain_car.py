@@ -9,6 +9,7 @@ import torch
 from repro_torch import random as R
 from repro_torch.core.env import Env, Timestep
 from repro_torch.core.spaces import Box, Discrete
+from repro_torch.numerics import div
 
 MIN_POS = -1.2
 MAX_POS = 0.6
@@ -28,6 +29,7 @@ class MountainCar(Env):
     observation_space = Box(low=(MIN_POS, -MAX_SPEED), high=(MAX_POS, MAX_SPEED),
                             shape=(2,))
     action_space = Discrete(3)
+    frame_shape = (84, 84)
 
     def reset(self, keys):
         pos = R.uniform(keys, (), -0.6, -0.4)
@@ -49,3 +51,23 @@ class MountainCar(Env):
         done = (position >= GOAL_POS) & (velocity >= GOAL_VEL)
         return Timestep(ns, self._obs(ns), torch.full_like(position, -1.0),
                         done, {})
+
+    # -- rendering (capsule scene; see kernels/raster) -----------------------
+    def scene(self, state: MountainCarState):
+        """Six terrain segments, the car and the flag: (..., 8, 5)."""
+        from repro_torch.kernels.raster import capsule_scene
+
+        def to_xy(p):
+            x = div(p - MIN_POS, MAX_POS - MIN_POS) * 0.8 + 0.1
+            y = 0.9 - (torch.sin(3 * p) * 0.45 + 0.55) * 0.6
+            return x, y
+
+        pos = state.position
+        xs, ys = to_xy(torch.linspace(MIN_POS, MAX_POS, 7, device=pos.device))
+        cx, cy = to_xy(pos)
+        gx, gy = to_xy(torch.full_like(pos, GOAL_POS))
+        return capsule_scene(pos, [
+            *((xs[i], ys[i], xs[i + 1], ys[i + 1], 0.006) for i in range(6)),
+            (cx, cy - 0.03, cx, cy - 0.03, 0.03),             # car dot
+            (gx, gy - 0.10, gx, gy, 0.008),                   # flag pole
+        ], (0.35,) * 6 + (1.0, 0.7))

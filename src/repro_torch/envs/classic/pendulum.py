@@ -33,6 +33,7 @@ class Pendulum(Env):
     observation_space = Box(low=(-1.0, -1.0, -MAX_SPEED),
                             high=(1.0, 1.0, MAX_SPEED), shape=(3,))
     action_space = Box(low=-MAX_TORQUE, high=MAX_TORQUE, shape=(1,))
+    frame_shape = (84, 84)
 
     def reset(self, keys):
         pair = R.split(keys)
@@ -59,3 +60,16 @@ class Pendulum(Env):
         ns = PendulumState(newth, newthdot)
         return Timestep(ns, self._obs(ns), -costs,
                         torch.zeros_like(th, dtype=torch.bool), {})
+
+    # -- rendering (capsule scene; see kernels/raster) -----------------------
+    def scene(self, state: PendulumState):
+        """Rod and pivot: (..., 2, 5) and (..., 2)."""
+        from repro_torch.kernels.raster import capsule_scene
+
+        ox, oy = 0.5, 0.5
+        tx = ox + 0.35 * torch.sin(state.theta)
+        ty = oy - 0.35 * torch.cos(state.theta)
+        return capsule_scene(state.theta, [
+            (ox, oy, tx, ty, 0.025),
+            (ox, oy, ox, oy, 0.02),
+        ], (1.0, 0.5))

@@ -28,6 +28,8 @@ BODIES = {
     "MountainCar": Body(1, 2, 2),
     "Pendulum": Body(2, 2, 3),
     "Acrobot": Body(3, 4, 6),
+    "Pong": Body(4, 6, 6),
+    "Breakout": Body(5, 29, 29),
 }
 _BY_ID = {b.kernel_id: b for b in BODIES.values()}
 

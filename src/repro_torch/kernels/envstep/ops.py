@@ -11,7 +11,16 @@ batched `AutoResetState` that `Vec(AutoReset(env))` carries, precomputes the
 auto-reset key chain and the K fresh reset states with the same `split` +
 `reset` sequence `AutoReset.step` makes every step (so the threefry stream
 matches the per-step path bit for bit), flattens the state to rows, runs
-the megastep and rebuilds the state.
+the megastep and rebuilds the state. Which parts of the stack fuse is read
+off the declared pipeline (`_plan`).
+
+Pixel stacks (`FrameStack(ObsToPixels(core))`, `ObsToPixels(core)`, the
+arcade ids) fuse too when the core's obs rows are its state rows
+(`FusedSpec.obs_is_state`): the kernel advances the game logic for the
+whole K-step chunk, then the chunk's frames are rasterised outside it, in
+two batched launches over the K·B stepped and the K·B fresh scenes, and a
+K-step select loop rebuilds the frame stack. That renders what the
+per-step path renders: one stepped and one fresh frame per lane and step.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch import random as R
+from repro_torch.core import pipeline as P
 from repro_torch.kernels.envstep.megastep import megastep_cuda
 from repro_torch.kernels.envstep.ref import megastep_ref
 from repro_torch.kernels.envstep.specs import lookup
@@ -44,9 +54,55 @@ def env_megastep(spec, state, actions, fresh, fresh_obs, *,
                         max_steps=max_steps)
 
 
+def _plan(env):
+    """Read the fusion plan off the stack's declared pipeline.
+
+    Accepts the one shape the kernel models, `[TimeLimit] [ObsToPixels
+    [FrameStack]]` over a base env. Returns (core, num_stack, pixels):
+    `core` is the TimeLimit(base) or bare-base sub-stack that `lookup`
+    resolves, or (None, None, False) for anything else (opaque wrappers,
+    FrameStack over non-pixel observations, other orders).
+    """
+    core, transforms = P.declared_pipeline(env)
+    if core is None:
+        return None, None, False
+    stack = list(transforms)  # innermost-first; env is the outermost wrapper
+    core, num_stack, pixels = env, None, False
+    if stack and stack[-1].fusion == P.FUSION_FRAME_STACK:
+        num_stack = stack.pop().num_frames
+        core = core.env
+    if stack and stack[-1].fusion == P.FUSION_PIXELS:
+        pixels = True
+        stack.pop()
+        core = core.env
+    elif num_stack is not None:
+        return None, None, False
+    if stack and not (len(stack) == 1
+                      and stack[0].fusion == P.FUSION_TIME_LIMIT):
+        return None, None, False
+    return core, num_stack, pixels
+
+
+def _pixel_fusable(spec, core) -> bool:
+    """A pixel stack fuses when the core's obs rows are its state rows and
+    the base env has a `scene()` to render them from."""
+    return bool(spec.obs_is_state) and hasattr(core.unwrapped, "scene")
+
+
+def _resolve(env):
+    """(core, spec, max_steps, num_stack, pixels) of a fusable stack, or
+    None."""
+    core, num_stack, pixels = _plan(env)
+    found = lookup(core) if core is not None else None
+    if found is None or (pixels and not _pixel_fusable(found[0], core)):
+        return None
+    return (core,) + found + (num_stack, pixels)
+
+
 def supports(env) -> bool:
-    """True if `env` (a base env or TimeLimit(base)) has a fused path."""
-    return lookup(env) is not None
+    """True if `env` (base, TimeLimit(base), or a pixel stack over them)
+    has a fused path."""
+    return _resolve(env) is not None
 
 
 def state_rows(spec, max_steps, wrapped):
@@ -63,10 +119,12 @@ def fresh_rows(env, keys: torch.Tensor, num_steps: int):
 
     Per step, `split(key)` gives the next chain key and a reset key, as in
     `AutoReset.step`. The chain is sequential; the K resets are one batched
-    `reset` over (K, B) keys. Returns (final_keys (B, 2),
-    fresh_rows (K, S', B), fresh_obs_rows (K, O, B)), contiguous.
+    `reset` over (K, B) keys. For a pixel stack the core sub-stack is reset
+    (the pixel wrappers pass the key through untouched), and the fresh
+    frames are rendered later from the obs rows. Returns (final_keys
+    (B, 2), fresh_rows (K, S', B), fresh_obs_rows (K, O, B)), contiguous.
     """
-    spec, max_steps = lookup(env)
+    env, spec, max_steps = _resolve(env)[:3]
     reset_keys = []
     for _ in range(num_steps):
         pair = R.split(keys)
@@ -77,12 +135,45 @@ def fresh_rows(env, keys: torch.Tensor, num_steps: int):
             fresh_obs.transpose(-1, -2).contiguous())
 
 
+def _render_obs_rows(core, spec, obs_rows, backend):
+    """(K, O, B) obs rows -> (K, B, H, W) frames, one batched raster call.
+
+    Valid because `spec.obs_is_state`: the obs rows are state rows, so each
+    step's scene is rebuilt on the device from the kernel's obs output.
+    """
+    from repro_torch.kernels.raster import render_scene
+
+    base = core.unwrapped
+    return render_scene(*base.scene(spec.unflatten(obs_rows)),
+                        *base.frame_shape, backend=backend)
+
+
+def _stack_frames(frames, pre, fresh, done):
+    """The frame-stack ring over K steps, as K `FrameStack.step`s under
+    `AutoReset` give it: frames (B, N, H, W) most recent last, pre and
+    fresh (K, B, H, W), done (K, B). Returns (obs, terminal_obs)
+    (K, B, N, H, W)."""
+    k = pre.shape[0]
+    tobs = torch.empty((k,) + tuple(frames.shape), dtype=frames.dtype,
+                       device=frames.device)
+    obs = torch.empty_like(tobs)
+    for t in range(k):
+        tobs[t, :, :-1] = frames[:, 1:]
+        tobs[t, :, -1] = pre[t]
+        torch.where(done[t, :, None, None, None], fresh[t, :, None], tobs[t],
+                    out=obs[t])
+        frames = obs[t]
+    return obs, tobs
+
+
 def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
                backend: str = "auto", active=None):
     """Advance a batched `AutoReset(env)` state by K fused steps.
 
-    env     : the single-env stack the pool holds, `TimeLimit(base)` or base.
-    state   : `AutoResetState` with batched (B,) leaves.
+    env     : the single-env stack the pool holds, `TimeLimit(base)` or
+              base, optionally under `ObsToPixels` or
+              `FrameStack(ObsToPixels(...))` (the arcade pixel pipeline).
+    state   : `AutoResetState` with batched (B, ...) leaves.
     actions : (K, B) (discrete) or (K, B, 1) (continuous) action block.
 
     Returns `(new_state, ts)`: `ts` is a `Timestep` whose obs / reward /
@@ -91,19 +182,21 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
     with a TimeLimit, `truncated`.
     """
     from repro_torch.core.env import Timestep
-    from repro_torch.core.wrappers import AutoResetState, TimeLimitState
+    from repro_torch.core.wrappers import (AutoResetState, FrameStackState,
+                                           TimeLimitState)
 
     if active is not None:
         raise NotImplementedError(
             "active= lane masks come with the async pool (ROADMAP A11)")
-    found = lookup(env)
+    found = _resolve(env)
     if found is None:
         raise NotImplementedError(
             f"no fused megastep spec for {env!r}; supported: CartPole, "
-            "MountainCar, Pendulum, Acrobot, bare or under one TimeLimit "
-            "(pixel stacks come with the pixel slice, ROADMAP A8; the grid, "
-            "puzzle and arcade bodies with theirs, ROADMAP B1)")
-    spec, max_steps = found
+            "MountainCar, Pendulum, Acrobot, Pong, Breakout, bare or under "
+            "one TimeLimit, the arcade games also under ObsToPixels or "
+            "FrameStack(ObsToPixels) (the grid, puzzle and multitask bodies "
+            "come with their slice, ROADMAP A9)")
+    core, spec, max_steps, num_stack, pixels = found
 
     acts = actions
     if acts.dim() == 3 and acts.shape[-1] == 1:
@@ -114,22 +207,43 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
     if num_steps is not None and num_steps != k:
         raise ValueError(f"num_steps={num_steps} != actions.shape[0]={k}")
 
-    final_keys, fresh, fobs = fresh_rows(env, state.key, k)
-    rows = state_rows(spec, max_steps, state.inner).contiguous()
+    final_keys, fresh, fobs = fresh_rows(core, state.key, k)
+    core_state = state.inner.inner if num_stack is not None else state.inner
+    rows = state_rows(spec, max_steps, core_state).contiguous()
     new_rows, obs, tobs, reward, done, trunc = env_megastep(
         spec, rows, acts.to(torch.float32).contiguous(), fresh, fobs,
         max_steps=max_steps, backend=backend)
 
     inner = spec.unflatten(new_rows[:spec.state_size])
+    done = done.to(torch.bool)
     info = {}
     if max_steps is not None:
         inner = TimeLimitState(inner, new_rows[spec.state_size].to(torch.int32))
         info["truncated"] = trunc.to(torch.bool)
-    info["terminal_obs"] = tobs.transpose(-1, -2)
+    if not pixels:
+        info["terminal_obs"] = tobs.transpose(-1, -2)
+        new_state = AutoResetState(inner, final_keys)
+        return new_state, Timestep(state=new_state,
+                                   obs=obs.transpose(-1, -2), reward=reward,
+                                   done=done, info=info)
+
+    # Pixel pipeline: the chunk's stepped (pre-reset) and fresh frames in
+    # two batched raster launches, then the auto-reset select and, under a
+    # FrameStack, the ring, step by step.
+    pre = _render_obs_rows(core, spec, tobs, backend)        # (K, B, H, W)
+    fresh_px = _render_obs_rows(core, spec, fobs, backend)
+    if num_stack is None:
+        obs_px = torch.where(done[..., None, None], fresh_px, pre)
+        tobs_px = pre
+    else:
+        obs_px, tobs_px = _stack_frames(state.inner.frames, pre, fresh_px,
+                                        done)
+        # a copy, so the state does not hold the chunk's obs alive
+        inner = FrameStackState(inner, obs_px[-1].clone())
+    info["terminal_obs"] = tobs_px
     new_state = AutoResetState(inner, final_keys)
-    return new_state, Timestep(state=new_state, obs=obs.transpose(-1, -2),
-                               reward=reward, done=done.to(torch.bool),
-                               info=info)
+    return new_state, Timestep(state=new_state, obs=obs_px, reward=reward,
+                               done=done, info=info)
 
 
 __all__ = ["BACKENDS", "env_megastep", "fresh_rows", "fused_step",

@@ -9,6 +9,10 @@ batch-native, so `step_rows` is the env's own `step` seen through that
 layout; the JAX package writes it out by hand only because its envs step a
 single lane. `kernel_id` picks the same dynamics' body in csrc/megastep.cu.
 
+`obs_is_state` says that the observation is the flattened state, declared
+per env as in the JAX package; it lets the pixel pipeline render every
+step's frame from the kernel's obs rows (ops.py::fused_step).
+
 `spec_for(core_env)` derives the spec of a supported base env; `lookup(env)`
 also accepts one declared `TimeLimit` over it and returns
 `(spec, max_steps)`, else None.
@@ -39,6 +43,9 @@ class FusedSpec(NamedTuple):
     #   -> (new_rows (S, B), obs (O, B), reward (B,), done (B,) float32)
     step_rows: Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, ...]]
     kernel_id: int      # the body's index in csrc/megastep.cu
+    # obs rows == state rows (obs = flattened base state): pixel stacks over
+    # an env with a `scene()` then fuse too
+    obs_is_state: bool = False
 
 
 def derive_layout(env):
@@ -46,8 +53,10 @@ def derive_layout(env):
 
     The state NamedTuple's fields, in declaration order, become consecutive
     row blocks of `prod(field_shape)` rows; the batch stays on the minor
-    axis. `flatten` accepts leading axes before the batch axis (the (K, B)
-    fresh-reset stacks of `ops.fused_step`).
+    axis. Integer fields (Breakout's int32 bricks) ride in the float32 rows;
+    their values are small, so the round trip is exact. `flatten` and
+    `unflatten` accept leading axes before the batch axis (the (K, B)
+    fresh-reset stacks and per-step obs rows of `ops.fused_step`).
     """
     state, obs = env.reset(R.PRNGKey(0, device="cpu")[None])
     cls = type(state)
@@ -67,7 +76,7 @@ def derive_layout(env):
     def unflatten(rows: torch.Tensor):
         parts, offset = {}, 0
         for f in fields:
-            block = rows[offset:offset + sizes[f]].transpose(-1, -2)
+            block = rows[..., offset:offset + sizes[f], :].transpose(-1, -2)
             offset += sizes[f]
             parts[f] = block.reshape(block.shape[:-1] + shapes[f]).to(dtypes[f])
         return cls(**parts)
@@ -84,9 +93,12 @@ def _rows_of(env, flatten, unflatten):
 
 
 def _fused_classes():
+    """Base env classes with a kernel body -> whether obs is the state."""
+    from repro_torch.envs.arcade import Breakout, Pong
     from repro_torch.envs.classic import Acrobot, CartPole, MountainCar, Pendulum
 
-    return (Acrobot, CartPole, MountainCar, Pendulum)
+    return {CartPole: True, MountainCar: True, Pendulum: False,
+            Acrobot: False, Pong: True, Breakout: True}
 
 
 #: per-instance memo: pools look a spec up on every fused chunk
@@ -98,7 +110,8 @@ def spec_for(env) -> Optional[FusedSpec]:
     if env in _SPEC_CACHE:
         return _SPEC_CACHE[env]
     spec = None
-    if type(env) in _fused_classes():
+    obs_is_state = _fused_classes().get(type(env))
+    if obs_is_state is not None:
         body = BODIES[type(env).__name__]
         state_size, obs_size, flatten, unflatten = derive_layout(env)
         if (state_size, obs_size) != (body.state_size, body.obs_size):
@@ -106,7 +119,7 @@ def spec_for(env) -> Optional[FusedSpec]:
                                f"{(state_size, obs_size)} != kernel body {body}")
         spec = FusedSpec(type(env).__name__, state_size, obs_size, flatten,
                          unflatten, _rows_of(env, flatten, unflatten),
-                         body.kernel_id)
+                         body.kernel_id, obs_is_state)
     _SPEC_CACHE[env] = spec
     return spec
 

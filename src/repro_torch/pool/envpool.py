@@ -13,6 +13,9 @@ host on the step path. Two surfaces, as in the JAX package:
 Backends: "vmap" steps `Vec(AutoReset(env))` once per step with plain
 tensor ops; "cuda" runs `unroll` steps per launch of the CUDA megastep
 kernel; "torch" runs the megastep's plain PyTorch version (the CPU path).
+Pixel ids (`Pong-v0`, `Breakout-v0`) observe (B, 4, 84, 84) frame stacks
+on every backend; the fused ones render each chunk's frames in two
+launches of the raster kernel ("cuda") or its plain version ("torch").
 The RNG plumbing (pool key, per-step `fold_in`, action sampling) is the JAX
 pool's, so every backend follows the JAX pool's trajectories.
 """
@@ -80,7 +83,7 @@ def _load_like(template, src, device):
         return type(template)(**{f: _load_like(getattr(template, f),
                                                getattr(src, f), device)
                                  for f in template._fields})
-    arr = np.asarray(src)
+    arr = np.array(src)
     if arr.shape != tuple(template.shape):
         raise ValueError(f"snapshot leaf has shape {arr.shape}, this pool "
                          f"holds {tuple(template.shape)}")
@@ -238,19 +241,30 @@ class EnvPool:
 
     # -- whole-rollout fast path --------------------------------------------
     def rollout(self, num_steps: int, key: torch.Tensor, render: bool = False):
-        """Random-policy rollout: (sum_reward (B,), episodes (B,), zeros (B,)).
+        """Random-policy rollout: (sum_reward (B,), episodes (B,), last).
 
         Fused backends run `unroll` steps per megastep launch. The RNG is
         the JAX pool's: the carry from `fold_in(key, 0x5EED)`, step i's
-        actions from `fold_in(key, i)`, i in 1..num_steps.
+        actions from `fold_in(key, i)`, i in 1..num_steps. `last` is zeros
+        (B,), or with `render=True` the frame (B, H, W) rendered from the
+        state after the last step: render mode renders after every step
+        (paper Fig. 1's render column), so it keeps the per-step body, one
+        fused step per launch on fused backends.
         """
-        if render:
-            raise NotImplementedError(
-                "render=True rollouts come with the pixel slice (ROADMAP A8)")
         key = key.to(self.device)
         ps = self._xla_init(R.fold_in(key, 0x5EED))
         rew = torch.zeros(self.num_envs, dtype=torch.float32, device=self.device)
         eps = torch.zeros(self.num_envs, dtype=torch.int32, device=self.device)
+        if render:
+            frame = self.venv.render(ps.env_state)
+            for i in range(1, num_steps + 1):
+                k = R.fold_in(key, i)
+                acts = sample_batch(self.action_space, k, self.num_envs)
+                ps, out = self._xla_step(ps, acts, k)
+                rew = rew + out.reward
+                eps = eps + out.done.to(torch.int32)
+                frame = self.venv.render(ps.env_state)
+            return rew, eps, frame
         kk = max(min(self.unroll, num_steps), 1) if self._fused else 1
         for start in range(1, num_steps + 1, kk):
             n = min(kk, num_steps + 1 - start)

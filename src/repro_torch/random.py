@@ -4,7 +4,7 @@ The committed golden traces (tests/golden/) and every parity test against
 the JAX package depend on the exact random stream, so this is a bit-exact
 port of JAX's *non-partitionable* threefry layout (`jax.random` under
 `jax.threefry_partitionable(False)`): `PRNGKey`, `split`, `fold_in`,
-`uniform` and `randint`.
+`uniform`, `bernoulli` and `randint`.
 
 A key is an int64 tensor whose last axis holds the two uint32 words
 `(..., 2)`; any leading axes are a batch of independent keys, so one call
@@ -125,6 +125,13 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (),
     return ((one_to_two - 1.0) * span + lo).clamp_min(lo)
 
 
+def bernoulli(key: torch.Tensor, p: float = 0.5,
+              shape: Sequence[int] = ()) -> torch.Tensor:
+    """`jax.random.bernoulli` with a scalar `p`: `uniform(key, shape) < p`,
+    p rounded to float32 as JAX takes it."""
+    return uniform(key, shape) < _f32(p)
+
+
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
             maxval: int) -> torch.Tensor:
     """`jax.random.randint` into int32 with scalar bounds.
@@ -143,5 +150,5 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
     return (offset % span + minval).to(torch.int32)
 
 
-__all__ = ["KEY_DTYPE", "PRNGKey", "fold_in", "randint", "random_bits",
-           "split", "threefry_2x32", "uniform"]
+__all__ = ["KEY_DTYPE", "PRNGKey", "bernoulli", "fold_in", "randint",
+           "random_bits", "split", "threefry_2x32", "uniform"]

@@ -3,8 +3,10 @@
 For CartPole, MountainCar, Pendulum and Acrobot: `reset` from the same keys,
 one `step` from the same numpy-seeded states and actions (wide enough that
 episodes end, speeds clamp and angles wrap), the fused `step_rows`, and the
-derived row layout. Ints and bools exact; floats to rtol 1e-5 / atol 1e-6
-(tests/conftest.py::assert_leaves_match). The JAX side runs in the legacy
+derived row layout; and the capsule `scene` and `render` behind
+`rollout(render=True)`. Ints and bools exact; floats to rtol 1e-5 / atol
+1e-6 (tests/conftest.py::assert_leaves_match), rendered frames to atol
+1e-5 (tests/test_torch_arcade.py::FRAME_ATOL says why). The JAX side runs in the legacy
 threefry layout the goldens were made with.
 """
 import math
@@ -119,3 +121,22 @@ def test_derived_layout_matches_jax(name):
     assert type(back) is type(state)
     for a, b in zip(state, back):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ENVS)
+def test_scene_and_render_match_jax(name):
+    rows, _ = _inputs(name, 5)
+    jenv, tenv = getattr(J, name)(), getattr(T, name)()
+    jstate = type(jax.eval_shape(jenv.reset, jax.random.PRNGKey(0))[0])(
+        *jnp.asarray(rows))
+    state = type(tenv.reset(torch.zeros(1, 2, dtype=torch.int64))[0])(
+        *torch.from_numpy(rows))
+    want_segs, want_int = jax.vmap(jenv.scene)(jstate)
+    segs, intens = tenv.scene(state)
+    _match(want_segs, segs, f"{name} segs")
+    _match(want_int, intens, f"{name} intens")
+    want = np.asarray(jax.vmap(jenv.render)(jstate))
+    got = tenv.render(state)
+    assert got.shape == (B, 84, 84) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5,
+                               err_msg=f"{name} frames")

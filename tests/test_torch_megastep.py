@@ -1,7 +1,8 @@
 """The port's plain megastep (`repro_torch.kernels.envstep.megastep_ref`)
 against the JAX package's jnp reference and its Pallas kernel in interpret
-mode, for the four classic bodies with and without a TimeLimit, at
-B = 200 (not a multiple of the 128-lane block) and K = 8.
+mode, for the four classic bodies and the two arcade ones (Pong, Breakout)
+with and without a TimeLimit, at B = 200 (not a multiple of the 128-lane
+block) and K = 8.
 
 The CUDA kernel itself is held against this plain version on the card by
 chip_smoke.py. Here: the dispatch, and that a CPU tensor never reaches it.
@@ -13,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-import repro.envs.classic as J
-import repro_torch.envs.classic as T
+import repro.envs.arcade as JA
+import repro.envs.classic as JC
+import repro_torch.envs.arcade as TA
+import repro_torch.envs.classic as TC
 from repro.kernels.envstep import megastep_pallas
 from repro.kernels.envstep import megastep_ref as jax_megastep_ref
 from repro.kernels.envstep import spec_for as jax_spec_for
@@ -23,7 +26,7 @@ from repro_torch.kernels.envstep import (env_megastep, megastep_cuda,
 
 B, K = 200, 8
 MAX_STEPS = {"CartPole": 500, "MountainCar": 200, "Pendulum": 200,
-             "Acrobot": 500}
+             "Acrobot": 500, "Pong": 1000, "Breakout": 1000}
 STATE_RANGES = {
     "CartPole": [(-2.4, 2.4), (-2.0, 2.0), (-0.21, 0.21), (-2.0, 2.0)],
     "MountainCar": [(-1.2, 0.6), (-0.07, 0.07)],
@@ -39,17 +42,43 @@ STATE_RANGES = {
 #: one step at full speed, clamps included, is held at 1e-6 in
 #: tests/test_torch_envs.py.
 ATOL = {"CartPole": 1e-6, "MountainCar": 1e-6, "Pendulum": 1e-6,
-        "Acrobot": 1e-4}
+        "Acrobot": 1e-4, "Pong": 1e-6, "Breakout": 1e-6}
 CASES = [(name, tl) for name in MAX_STEPS for tl in (True, False)]
+
+
+def _env(name, jax_side):
+    arcade = name in ("Pong", "Breakout")
+    mod = (JA if arcade else JC) if jax_side else (TA if arcade else TC)
+    return getattr(mod, name)()
+
+
+def _arcade_rows(name, rng, lead):
+    """Arcade state rows: balls that reach the paddles and edges inside K
+    steps; Breakout's in and around the brick region over random 0/1
+    boards, a few nearly cleared, so bricks break and boards clear."""
+    u = lambda lo, hi: rng.uniform(lo, hi, lead + (B,))
+    sign = lambda: np.where(rng.random(lead + (B,)) < 0.5, -1.0, 1.0)
+    if name == "Pong":
+        return [u(0.0, 1.0), u(0.0, 1.0), sign() * 0.035, u(-0.05, 0.05),
+                u(0.12, 0.88), u(0.12, 0.88)]
+    board = rng.random(lead + (24, B)) < 0.5
+    board &= rng.random(lead + (1, B)) < 0.8   # a fifth of the boards empty
+    board[..., 9, :] = True                   # ... but for one brick
+    return [u(0.0, 1.0), u(0.05, 0.5), u(-0.04, 0.04), sign() * u(0.02, 0.04),
+            u(0.14, 0.86), *np.moveaxis(board, -2, 0)]
 
 
 def _inputs(name, time_limit, seed=0):
     """numpy-seeded (state, actions, fresh, fresh_obs) rows, float32."""
     rng = np.random.default_rng(seed)
-    o = jax_spec_for(getattr(J, name)()).obs_size
+    o = jax_spec_for(_env(name, True)).obs_size
 
     def states(lead):
-        rows = [rng.uniform(lo, hi, lead + (B,)) for lo, hi in STATE_RANGES[name]]
+        if name in STATE_RANGES:
+            rows = [rng.uniform(lo, hi, lead + (B,))
+                    for lo, hi in STATE_RANGES[name]]
+        else:
+            rows = _arcade_rows(name, rng, lead)
         if time_limit:  # counters close enough to the limit to cut inside K
             rows.append(rng.integers(MAX_STEPS[name] - 2 * K, MAX_STEPS[name],
                                      lead + (B,)))
@@ -79,7 +108,7 @@ def _check(want, got, what, atol=1e-6):
 
 
 def _run_port(name, time_limit, ops):
-    spec = spec_for(getattr(T, name)())
+    spec = spec_for(_env(name, False))
     return megastep_ref(spec.step_rows, *map(torch.from_numpy, ops),
                         max_steps=MAX_STEPS[name] if time_limit else None)
 
@@ -88,20 +117,23 @@ def _run_port(name, time_limit, ops):
 def test_megastep_ref_matches_jax_ref(name, time_limit):
     ops = _inputs(name, time_limit)
     got = _run_port(name, time_limit, ops)
-    want = jax_megastep_ref(jax_spec_for(getattr(J, name)()).step_rows,
+    want = jax_megastep_ref(jax_spec_for(_env(name, True)).step_rows,
                             *map(jnp.asarray, ops),
                             max_steps=MAX_STEPS[name] if time_limit else None)
     _check(want, got, f"{name} tl={time_limit} vs jnp ref", ATOL[name])
     assert got[4].sum() > 0 or name == "Pendulum" and not time_limit
     if time_limit:
         assert got[5].sum() > 0, "the inputs must exercise truncation"
+    if name == "Breakout":
+        assert (got[3] >= 1).any() and (got[3] >= 5).any(), (
+            "bricks must break and a board must clear")
 
 
 @pytest.mark.parametrize("name,time_limit", CASES)
 def test_megastep_ref_matches_pallas_interpret(name, time_limit):
     ops = _inputs(name, time_limit, seed=1)
     got = _run_port(name, time_limit, ops)
-    want = megastep_pallas(jax_spec_for(getattr(J, name)()).step_rows,
+    want = megastep_pallas(jax_spec_for(_env(name, True)).step_rows,
                            *map(jnp.asarray, ops),
                            max_steps=MAX_STEPS[name] if time_limit else None,
                            interpret=True)
@@ -111,7 +143,7 @@ def test_megastep_ref_matches_pallas_interpret(name, time_limit):
 
 def test_dispatch_on_cpu_tensors():
     """"auto" takes the plain version for CPU tensors; "cuda" raises."""
-    spec = spec_for(T.CartPole())
+    spec = spec_for(TC.CartPole())
     ops = [torch.from_numpy(x) for x in _inputs("CartPole", True)]
     want = megastep_ref(spec.step_rows, *ops, max_steps=500)
     got = env_megastep(spec, *ops, max_steps=500, backend="auto")

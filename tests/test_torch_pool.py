@@ -6,7 +6,9 @@
   - `rollout` and the stateful `step` (key chain included) against JAX
     `make_vec(id, 8, backend="jnp", unroll=8)`;
   - a JAX `EnvPool.state_dict()` loaded into the port, both pools then
-    stepping alike, and the port's own snapshot in the JAX structure.
+    stepping alike, and the port's own snapshot in the JAX structure; also
+    for the pixel id `Pong-v0`, whose snapshot holds a `FrameStackState`;
+  - `rollout(render=True)` against the JAX pool's last frame.
 
 The JAX side builds and runs inside `jax.threefry_partitionable(False)`,
 the layout the goldens were made with. The port's `Vec.step` derives no
@@ -31,6 +33,11 @@ CLASSIC = ("CartPole-v1", "MountainCar-v0", "Pendulum-v1", "Acrobot-v1")
 GOLDEN_IDS = CLASSIC + ("CartPole-raw", "MountainCar-raw", "Pendulum-raw",
                         "Acrobot-raw")
 B, UNROLL, ROLLOUT_STEPS, STATEFUL_STEPS = 8, 8, 20, 12
+#: float atol of rendered frames: the JAX rasteriser under jit contracts
+#: some multiply-adds, the port rounds every op apart, and the soft edge
+#: multiplies the difference by H = 84 (tests/test_torch_arcade.py says
+#: more); the JAX package's own raster tests hold at 1e-5 too.
+FRAME_ATOL = 1e-5
 
 
 def _np(x):
@@ -132,6 +139,31 @@ def test_loads_jax_state_dict(name):
                 _match(want[i], got[i], f"{name} {what} {t}")
 
 
+def test_loads_jax_pixel_state_dict():
+    """A JAX `Pong-v0` snapshot, frame stack included, round-trips through
+    the port, and both pools then step alike."""
+    b = 3
+    with jax.threefry_partitionable(False):
+        jpool = jax_make_vec("Pong-v0", b, backend="jnp")
+        jpool.reset(seed=6)
+        for t in range(3):
+            jpool.step(jpool.sample_actions(seed=100 + t))
+        snap = jpool.state_dict()
+        assert type(snap["env_state"].inner).__name__ == "FrameStackState"
+        pool = repro_torch.make_vec("Pong-v0", b, backend="torch",
+                                    device="cpu")
+        pool.load_state_dict(snap)
+        _match_tree(snap, pool.state_dict(), "Pong-v0 snapshot round trip")
+        for t in range(4):
+            want = jpool.step(jpool.sample_actions(seed=t))
+            got = pool.step(pool.sample_actions(seed=t))
+            assert got[0].shape == (b, 4, 84, 84)
+            np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                       rtol=1e-5, atol=FRAME_ATOL)
+            _match(want[1], got[1], f"Pong-v0 reward {t}")
+            _match(want[2], got[2], f"Pong-v0 done {t}")
+
+
 def test_load_state_dict_rejects_other_widths():
     with jax.threefry_partitionable(False):
         jpool = jax_make_vec("CartPole-v1", B, backend="jnp")
@@ -143,12 +175,22 @@ def test_load_state_dict_rejects_other_widths():
 
 
 def test_unported_surfaces_raise_with_roadmap_item():
+    """The surfaces still to port raise naming their ROADMAP item; the
+    render rollout, ported since, gives the JAX pool's last frame."""
     with pytest.raises(NotImplementedError, match="A11"):
         repro_torch.make_vec("CartPole-v1", 2, backend="async", device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         repro_torch.make_vec("CartPole-v1", 2, host=True, device="cpu")
+    with jax.threefry_partitionable(False):
+        j_rew, j_eps, j_frame = jax_make_vec(
+            "CartPole-v1", 2, backend="jnp").rollout(
+                6, jax.random.PRNGKey(0), render=True)
     pool = repro_torch.make_vec("CartPole-v1", 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        pool.rollout(4, R.PRNGKey(0, "cpu"), render=True)
+    rew, eps, frame = pool.rollout(6, R.PRNGKey(0, "cpu"), render=True)
+    assert frame.shape == (2, 84, 84) and float(frame.max()) > 0.5
+    np.testing.assert_allclose(frame.numpy(), np.asarray(j_frame), rtol=1e-5,
+                               atol=FRAME_ATOL)
+    _match(j_rew, rew, "render rollout sum_reward")
+    _match(j_eps, eps, "render rollout episodes")
     with pytest.raises(ValueError, match="CUDA device"):
         repro_torch.make_vec("CartPole-v1", 2, backend="cuda", device="cpu")
