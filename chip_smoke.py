@@ -11,35 +11,45 @@ repository around it. Phases, each printing one JSON line with its seconds:
   build    nvcc builds of csrc/megastep.cu and csrc/raster.cu, in parallel,
            with ptxas's register and spill report per kernel instantiation
   kernel   the CUDA megastep against its plain PyTorch version on the card:
-           the four classic bodies at K = 32 and Pong and Breakout at K = 8,
-           each with and without a TimeLimit, at B = 65,573 (a ragged last
-           block)
+           the four classic bodies at K = 32, Pong and Breakout at K = 8 and
+           the five grid and puzzle bodies (LightsOut, FrozenLake,
+           CliffWalk, Maze, Snake) at K = 32 from states steered into their
+           terminal cases, bit for bit, each with and without a TimeLimit,
+           at B = 65,573 (a ragged last block)
   raster   the CUDA rasteriser against its plain version on the card: Pong
            and Breakout scenes at the pixel path's 32,768 frames of 84×84,
-           a ragged frame count and a non-square frame; kernel and plain
-           times and the bound
-  main     three paths, each with the launch counts set to 0 just before
-           and read just after: make_vec(id, 65536, unroll=32).rollout(1024)
-           for the four classic ids; make_vec(id, 4096, unroll=8)
-           .rollout(1024) for Pong-v0 and Breakout-v0 (megastep and raster);
-           rollout(256, render=True) for the classic ids at B = 65,536.
-           Then the classic and pixel rollouts again with host syncs made
-           errors
+           a ragged frame count and a non-square frame; 32,768 frames of
+           each grid family's point capsules, LightsOut's and Multitask's
+           scenes, bit for bit; kernel and plain times and the bound
+  main     paths, each with the launch counts set to 0 just before and read
+           just after: make_vec(id, 65536, unroll=32).rollout(1024) for the
+           four classic ids; make_vec(id, 4096, unroll=8).rollout(1024) for
+           Pong-v0 and Breakout-v0 (megastep and raster);
+           rollout(256, render=True) for the classic ids at B = 65,536;
+           rollout(1024) at B = 65,536, K = 32 for the five grid and puzzle
+           ids; Multitask-v0 on the vmap backend (no kernel) at B = 65,536
+           for 256 steps; Maze-px and FrozenLake-px on the vmap backend at
+           B = 4,096 for 128 steps (raster only); rollout(64, render=True)
+           for Maze-v0 at B = 65,536. Then the fused rollouts again with
+           host syncs made errors
   render_check  both kernels against their plain versions at the render
-           path's shapes: a K = 1 megastep at B = 65,536 per classic id and
+           path's shapes: a K = 1 megastep at B = 65,536 per render id and
            the raster of the 65,536 frames its new state renders to
   parity   64-step rollouts, backend "cuda" against "torch", on the card,
            and a pixel chunk's frames
-  golden   the committed tests/golden traces (classic and arcade), replayed
-           on the card
-  numbers  env steps/s per id: classic at B = 65,536 (CartPole-v1 also at
-           B = 4,096), Pong-v0 and Breakout-v0 at B = 4,096, K = 8
+  golden   the 28 committed tests/golden traces, replayed on the card
+  numbers  env steps/s per id: classic and grid at B = 65,536 (CartPole-v1
+           also at B = 4,096), Pong-v0 and Breakout-v0 at B = 4,096, K = 8,
+           Multitask-v0 at B = 65,536, Maze-px and FrozenLake-px at 4,096
   split    CartPole-v1: the megastep against its plain version at the main
            path's shapes, then per-chunk times of the kernel, the
            fresh-reset precompute and the action sampling. Pong-v0 and
            Breakout-v0: both kernels against their plain versions on a real
            chunk, then per-chunk times of the megastep, the two raster
            launches, the frame-stack select, the precompute and the sampling
+  grid_split  each grid and puzzle body on a real main-path chunk: the
+           megastep against its plain version bit for bit, both timed, and
+           the bound; for Maze-v0 and Snake-v0 the chunk's split
 then the kernels line, and last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -59,15 +69,30 @@ sys.path.insert(0, str(ROOT / "src"))
 
 IDS = ("CartPole-v1", "MountainCar-v0", "Pendulum-v1", "Acrobot-v1")
 PIXEL_IDS = ("Pong-v0", "Breakout-v0")
+#: the grid and puzzle bodies of the megastep, and their fused ids
+GRID = ("LightsOut", "FrozenLake", "CliffWalk", "Maze", "Snake")
+GRID_IDS = tuple(f"{name}-v0" for name in GRID)
+#: ids of this slice that run the vmap backend: Multitask (its dynamics
+#: read the per-step key) and the grid pixel ids (their obs is not their
+#: state, so the pixel pipeline does not fuse)
+MULTITASK_ID, GRID_PX_IDS = "Multitask-v0", ("Maze-px", "FrozenLake-px")
+GRID_RENDER_ID = "Maze-v0"
 GOLDEN_IDS = IDS + ("CartPole-raw", "MountainCar-raw", "Pendulum-raw",
                     "Acrobot-raw", "Pong-v0", "Pong-raw", "Breakout-v0",
-                    "Breakout-raw")
+                    "Breakout-raw") + tuple(
+    f"{name}-{v}" for name in GRID + ("Multitask",) for v in ("v0", "raw")
+) + tuple(f"{name}-px" for name in ("FrozenLake", "CliffWalk", "Maze",
+                                    "Snake"))
 B_MAIN, B_SMALL, B_CHECK = 65536, 4096, 65536 + 37
 K, STEPS, PARITY_STEPS = 32, 1024, 64
 #: the pixel ids: B keeps one chunk's live tensors near 10 GB; K = 8 is the
 #: JAX package's cap for pixel ids (benchmarks/fig1_env_throughput.py)
 B_PIXEL, K_PIXEL = 4096, 8
 RENDER_STEPS = 256
+#: depths of this slice's vmap and render paths (steps per rollout)
+MULTITASK_STEPS, GRID_PX_STEPS, GRID_RENDER_STEPS = 256, 128, 64
+#: frames per raster check of this slice's scenes
+GRID_FRAMES = 32768
 RTOL, ATOL = 1e-5, 1e-6           # tests/conftest.py::assert_leaves_match
 GOLDEN_TOL = 1e-4                 # tests/test_golden.py
 TIMED_RUNS = 3
@@ -86,6 +111,13 @@ CARTPOLE_OPS_PER_LANE_STEP = 49
 #: one op), per segment staged (dx, dy, the squared length and its clamp)
 #: and per pixel (its centre). Zero-intensity segments are skipped, so
 #: only live ones count.
+#: ops per lane-step of the grid and puzzle bodies with TimeLimit, lower
+#: estimates counted in csrc/megastep.cu: one per observation code stored,
+#: plus the move, the plane lookups, reward, done and the TimeLimit fold;
+#: Snake adds four per cell for its ages. Their bytes bound is twenty times
+#: their operations bound or more, so the estimate decides nothing.
+GRID_OPS_PER_LANE_STEP = {"LightsOut": 37, "FrozenLake": 28, "CliffWalk": 62,
+                          "Maze": 78, "Snake": 200}
 RASTER_OPS_PER_PIXEL_SEGMENT = 25
 RASTER_OPS_PER_SEGMENT = 6
 RASTER_OPS_PER_PIXEL = 4
@@ -100,7 +132,9 @@ STATE_RANGES = {
                 (-4 * math.pi, 4 * math.pi), (-9 * math.pi, 9 * math.pi)],
 }
 MAX_STEPS = {"CartPole": 500, "MountainCar": 200, "Pendulum": 200,
-             "Acrobot": 500, "Pong": 1000, "Breakout": 1000}
+             "Acrobot": 500, "Pong": 1000, "Breakout": 1000,
+             "LightsOut": 100, "FrozenLake": 100, "CliffWalk": 100,
+             "Maze": 200, "Snake": 200}
 KERNEL_K = {"Pong": K_PIXEL, "Breakout": K_PIXEL}
 
 
@@ -121,6 +155,16 @@ def megastep_bytes(b: int, k: int, s: int, o: int) -> int:
     reads = s + k * (1 + s + o)           # state; act, fresh, fresh_obs
     writes = s + k * (2 * o + 3)          # state; obs, tobs, rew, done, trunc
     return 4 * b * (reads + writes)
+
+
+def packed_megastep_bytes(b: int, k: int, s: int, o: int, resets: int) -> int:
+    """Bytes a grid or puzzle megastep must move: the state read and
+    written once, the actions read, obs, terminal_obs, reward, done and
+    truncated written, and the fresh state and observation read only for
+    the `resets` lane-steps that reset (the kernel reads no others)."""
+    reads = s * b + k * b + resets * (s + o)
+    writes = s * b + k * b * (2 * o + 3)
+    return 4 * (reads + writes)
 
 
 def raster_work(intens, h: int, w: int):
@@ -213,8 +257,8 @@ def phase_device(torch):
     return name, smi
 
 
-_BODY = re.compile(r"(CartPole|MountainCar|Pendulum|Acrobot|Pong|Breakout)"
-                   r"ELb([01])")
+_BODY = re.compile(r"(CartPole|MountainCar|Pendulum|Acrobot|Pong|Breakout|"
+                   r"LightsOut|FrozenLake|CliffWalk|Maze|Snake)ELb([01])")
 
 
 def _entry_name(mangled: str) -> str:
@@ -303,6 +347,10 @@ def kernel_inputs(torch, name, time_limit, b, k, seed, device):
             for x in ops]
 
 
+EXACT_ALL = ("new_state", "obs", "terminal_obs", "reward", "done",
+             "truncated")
+
+
 def compare(torch, got, want, what, exact=("done", "truncated")):
     """The `exact` outputs bit for bit, floats within RTOL/ATOL; max abs
     error."""
@@ -323,10 +371,108 @@ def compare(torch, got, want, what, exact=("done", "truncated")):
 def _envs():
     from repro_torch.envs.arcade import Breakout, Pong
     from repro_torch.envs.classic import Acrobot, CartPole, MountainCar, Pendulum
+    from repro_torch.envs.grid import CliffWalk, FrozenLake, Maze, Snake
+    from repro_torch.envs.puzzle import LightsOut
 
     return {"CartPole": CartPole(), "MountainCar": MountainCar(),
             "Pendulum": Pendulum(), "Acrobot": Acrobot(), "Pong": Pong(),
-            "Breakout": Breakout()}
+            "Breakout": Breakout(), "LightsOut": LightsOut(),
+            "FrozenLake": FrozenLake(), "CliffWalk": CliffWalk(),
+            "Maze": Maze(), "Snake": Snake()}
+
+
+#: Snake's cells in boustrophedon order: a body laid along it is a legal
+#: snake of any length
+SNAKE_PATH = [r * 6 + (c if r % 2 == 0 else 5 - c)
+              for r in range(6) for c in range(6)]
+
+
+def grid_state_rows(rng, name, b):
+    """numpy-seeded (S, b) state rows of a grid or puzzle body, in the env's
+    own form (0/1 planes, integer cells), and (b,) actions steering toward
+    the terminal cases: LightsOut boards one press from solved and that
+    press; agents among random holes, cliffs and walls, a third of them
+    beside the goal and stepping into it (a Maze goal one step away); snakes
+    of every length laid along SNAKE_PATH, half of them turning into their
+    food, a quarter one eat from filling the board, the rest heading into
+    walls and their own body at random."""
+    import numpy as np
+
+    act = rng.integers(0, 25 if name == "LightsOut" else 4, b)
+    lanes = np.arange(b)
+    if name == "LightsOut":
+        press = rng.integers(0, 25, b)[:, None]
+        cr, cc = np.arange(25) // 5, np.arange(25) % 5
+        cross = (((cr == press // 5) & (np.abs(cc - press % 5) <= 1))
+                 | ((cc == press % 5) & (np.abs(cr - press // 5) <= 1)))
+        near = lanes % 3 == 0
+        board = np.where(near[:, None], cross, rng.random((b, 25)) < 0.5)
+        act = np.where(near, press[:, 0], act)
+        return np.concatenate([board.T, rng.integers(0, 90, (1, b))]
+                              ).astype(np.float32), act
+    toward = lambda a, z, n: np.select([z - a == 1, z - a == -1, z - a == n],
+                                       [2, 0, 1], 3)
+    if name == "Snake":
+        path = np.asarray(SNAKE_PATH)
+        length = np.where(lanes % 4 == 0, 35, rng.integers(1, 35, b))
+        j = np.arange(36)
+        ages = np.zeros((b, 36))
+        ages[:, path] = np.where(j < length[:, None], j + 1, 0)
+        head, food = path[length - 1], path[length]
+        act = np.where(lanes % 2 == 0, toward(head, food, 6), act)
+        scalars = np.stack([head, food, length, rng.integers(0, 40, b)])
+        return np.concatenate([scalars, ages.T, rng.random((36, b))]
+                              ).astype(np.float32), act
+    n_rows, n_cols = {"FrozenLake": (4, 4), "CliffWalk": (4, 12),
+                      "Maze": (8, 8)}[name]
+    m = n_rows * n_cols
+    plane = rng.random((b, m)) < (0.25 if name == "CliffWalk" else 0.35)
+    goal = (rng.integers(m // 2, m, b) if name == "Maze"
+            else np.full(b, m - 1))
+    if name == "CliffWalk":
+        plane[:, (n_rows - 1) * n_cols] = False       # the start
+    plane[lanes, goal] = False
+    score = rng.random((b, m))
+    score[plane] = -1.0
+    score[lanes, goal] = -1.0
+    pos = score.argmax(1)                 # a random free cell, not the goal
+    near = lanes % 3 == 0
+    from_left = goal % n_cols != 0
+    beside = np.where(from_left, goal - 1, goal - n_cols)
+    pos = np.where(near, beside, pos)
+    plane[lanes[near], beside[near]] = False
+    act = np.where(near, np.where(from_left, 2, 1), act)
+    lead = [pos] if name != "Maze" else [pos, goal]
+    return np.concatenate([np.stack(lead), plane.T]).astype(np.float32), act
+
+
+def grid_kernel_inputs(torch, name, time_limit, b, k, seed, device):
+    """Megastep operands of a grid or puzzle body: the state and the first
+    step's actions from `grid_state_rows`, random actions after it, and the
+    fresh states and observations of K·b real resets on the card."""
+    import numpy as np
+
+    from repro_torch import random as R
+    from repro_torch.kernels.envstep.specs import spec_for
+
+    env = _envs()[name]
+    spec = spec_for(env)
+    rng = np.random.default_rng(seed)
+    rows, act0 = grid_state_rows(rng, name, b)
+    act = rng.integers(0, 25 if name == "LightsOut" else 4, (k, b))
+    act[0] = act0
+    keys = R.split(R.PRNGKey(seed, device), k * b).reshape(k, b, 2)
+    fresh_state, fresh_obs = env.reset(keys)
+    fresh = spec.flatten(fresh_state)
+    if time_limit:
+        lo = MAX_STEPS[name] - 2 * k
+        rows = np.concatenate([rows, rng.integers(lo, MAX_STEPS[name],
+                                                  (1, b))])
+        fresh = torch.cat([fresh, torch.zeros_like(fresh[:, :1])], 1)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+    return [as_t(rows).contiguous(), as_t(act).contiguous(),
+            fresh.contiguous(),
+            fresh_obs.transpose(-1, -2).to(torch.float32).contiguous()]
 
 
 def phase_kernel(torch, device):
@@ -342,10 +488,12 @@ def phase_kernel(torch, device):
             arcade = name in KERNEL_K
             exact = ("reward", "done", "truncated") if arcade else (
                 "done", "truncated")
+            if name in GRID:
+                exact = EXACT_ALL
             for time_limit in (True, False):
                 max_steps = MAX_STEPS[name] if time_limit else None
-                ops = kernel_inputs(torch, name, time_limit, B_CHECK, k, i,
-                                    device)
+                inputs = grid_kernel_inputs if name in GRID else kernel_inputs
+                ops = inputs(torch, name, time_limit, B_CHECK, k, i, device)
                 got = megastep_cuda(BODIES[name].kernel_id, *ops,
                                     max_steps=max_steps)
                 want = megastep_ref(spec.step_rows, *ops, max_steps=max_steps)
@@ -355,15 +503,20 @@ def phase_kernel(torch, device):
                 case = {"body": name, "max_steps": max_steps, "K": k,
                         "max_abs_err": err, "dones": int(got[4].sum()),
                         "truncations": int(got[5].sum())}
-                if arcade:
+                if arcade or name in GRID:
                     case["reward_sum"] = float(got[3].sum())
+                if name in ("Maze", "Snake"):   # goals; eats, wins included
+                    case["reward_1"] = int((got[3] == 1).sum())
+                    case["reward_1_and_done"] = int(
+                        ((got[3] == 1) & (got[4] == 1)).sum())
                     if name == "Breakout":
                         case["bricks_broken"] = int((got[3] >= 1).sum())
                         case["boards_cleared"] = int((got[3] >= 5).sum())
                 rows.append(case)
     emit({"phase": "kernel", "seconds": time.perf_counter() - t0,
           "B": B_CHECK, "rtol": RTOL, "atol": ATOL,
-          "exact": "done, truncated; reward too for Pong and Breakout",
+          "exact": "done, truncated; reward too for Pong and Breakout; "
+                   "every output for the grid and puzzle bodies",
           "cases": rows})
     return worst
 
@@ -383,6 +536,33 @@ def arcade_scenes(torch, name, n, seed, device):
     return segs.contiguous(), intens.contiguous()
 
 
+def grid_scenes(torch, name, n, seed, device):
+    """(segs, intens) of n numpy-seeded states of a grid, puzzle or
+    Multitask env, built by the env's own `scene` on the card: point
+    capsules, FrozenLake's holes and Snake's empty cells at intensity 0."""
+    import numpy as np
+
+    from repro_torch.envs.multitask import Multitask, MultitaskState
+    from repro_torch.kernels.envstep.specs import spec_for
+
+    rng = np.random.default_rng(seed)
+    if name == "Multitask":
+        env = Multitask()
+        u = lambda lo, hi: torch.as_tensor(rng.uniform(lo, hi, n),
+                                           dtype=torch.float32, device=device)
+        lane = lambda: torch.as_tensor(rng.integers(0, 3, n),
+                                       dtype=torch.int32, device=device)
+        state = MultitaskState(u(0.05, 0.95), u(0.1, 0.9), u(0.0, 1.0),
+                               lane(), lane(), u(0.0, 1.0), lane())
+    else:
+        env = _envs()[name]
+        rows = torch.as_tensor(grid_state_rows(rng, name, n)[0],
+                               device=device)
+        state = spec_for(env).unflatten(rows)
+    segs, intens = env.scene(state)
+    return segs.contiguous(), intens.contiguous()
+
+
 def random_scenes(torch, n, s, seed, device):
     """Random capsules, segment 0 a dot and the last one padding."""
     g = torch.Generator(device=device).manual_seed(seed)
@@ -394,11 +574,16 @@ def random_scenes(torch, n, s, seed, device):
     return segs.contiguous(), intens.contiguous()
 
 
-def raster_check(torch, segs, intens, h, w, what):
+def raster_check(torch, segs, intens, h, w, what, exact=False):
+    """The kernel against its plain version: bit for bit when `exact`,
+    else within RTOL/ATOL. Returns (max abs error, the kernel's frames)."""
     from repro_torch.kernels.raster import rasterize_cuda, rasterize_ref
 
     got = rasterize_cuda(segs, intens, h, w)
     want = rasterize_ref(segs, intens, h, w)
+    if exact and not torch.equal(got, want):
+        raise AssertionError(f"raster {what}: {int((got != want).sum())} "
+                             "pixels differ from the plain version")
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
                                msg=lambda m: f"raster {what}: {m}")
     return float((got - want).abs().max()), got
@@ -442,10 +627,31 @@ def phase_raster(torch, device, bw, flops):
                 case.update(raster_times(torch, segs, intens, h, w, bw,
                                          flops))
             cases.append(case)
+        # this slice's scenes, bit for bit: the grid suite's point capsules
+        # (S = 16, 48, 64, 36), LightsOut's 25 and Multitask's 5
+        grid_times = None
+        for i, name in enumerate(GRID + ("Multitask",)):
+            segs, intens = grid_scenes(torch, name, GRID_FRAMES, 10 + i,
+                                       device)
+            err, out = raster_check(torch, segs, intens, 84, 84,
+                                    f"{name} scenes", exact=True)
+            if not bool(out.max() > 0.5):
+                raise AssertionError(f"raster {name} scenes: nothing drawn")
+            worst = max(worst, err)
+            case = {"case": f"{name} scenes", "frames": GRID_FRAMES,
+                    "S": intens.shape[1], "H": 84, "W": 84, "exact": True,
+                    "live_segments_per_frame": float(
+                        (intens != 0).sum()) / GRID_FRAMES,
+                    "max_abs_err": err}
+            if name == "Maze":
+                grid_times = raster_times(torch, segs, intens, 84, 84, bw,
+                                          flops)
+                case.update(grid_times)
+            cases.append(case)
     emit({"phase": "raster", "seconds": time.perf_counter() - t0,
           "rtol": RTOL, "atol": ATOL, "cases": cases,
           "clock": "CUDA events: kernel over 20 launches, plain over 2"})
-    return worst
+    return worst, grid_times
 
 
 def check_rollout(torch, env_id, rew, eps, b):
@@ -527,6 +733,48 @@ def phase_main(torch, device, sync):
         rows.append(row)
     paths["render"] = read_counts()
 
+    # the grid and puzzle ids: the megastep's five packed bodies
+    reset_counts()
+    for env_id in GRID_IDS:
+        pools[env_id], row = drive(torch, sync, env_id, B_MAIN, K, STEPS, key,
+                                   device, {"megastep": STEPS // K,
+                                            "raster": 0})
+        rows.append(row)
+    paths["grid"] = read_counts()
+
+    # Multitask on the vmap backend: its dynamics read the per-step key, so
+    # it has no megastep body and launches no kernel
+    reset_counts()
+    vmap_pools = {}
+    vmap_pools[MULTITASK_ID], row = drive(
+        torch, sync, MULTITASK_ID, B_MAIN, 1, MULTITASK_STEPS, key, device,
+        {"megastep": 0, "raster": 0})
+    rows.append(row)
+    paths["multitask"] = read_counts()
+
+    # the grid pixel ids on the vmap backend: per step the raster renders
+    # the stepped frames (ObsToPixels.step) and the fresh reset frames
+    # (AutoReset resets the whole stack every step), and once the reset
+    reset_counts()
+    for env_id in GRID_PX_IDS:
+        vmap_pools[env_id], row = drive(
+            torch, sync, env_id, B_PIXEL, 1, GRID_PX_STEPS, key, device,
+            {"megastep": 0, "raster": 2 * GRID_PX_STEPS + 1})
+        rows.append(row)
+    paths["grid_pixels"] = read_counts()
+    for env_id, pool in vmap_pools.items():
+        if pool.backend != "vmap":
+            raise AssertionError(f"{env_id} ran {pool.backend}, not vmap")
+
+    # a grid render rollout: one fused step and one frame per step
+    reset_counts()
+    render_pools[GRID_RENDER_ID], row = drive(
+        torch, sync, GRID_RENDER_ID, B_MAIN, K, GRID_RENDER_STEPS, key,
+        device, {"megastep": GRID_RENDER_STEPS,
+                 "raster": GRID_RENDER_STEPS + 1}, render=True)
+    rows.append(row)
+    paths["grid_render"] = read_counts()
+
     # Steady state with every host sync an error: the port's counterpart of
     # the JAX package's zero-host-transfer check on the compiled rollout.
     for env_id, pool in pools.items():
@@ -541,7 +789,7 @@ def phase_main(torch, device, sync):
     emit({"phase": "main", "seconds": time.perf_counter() - t0, "rows": rows,
           "launches_per_path": paths, "launches": launches,
           "sync_free_steady_state": list(pools)})
-    return pools, render_pools, launches
+    return pools, vmap_pools, render_pools, launches
 
 
 def phase_parity(torch, device):
@@ -552,7 +800,7 @@ def phase_parity(torch, device):
     t0 = time.perf_counter()
     rows = []
     key = R.PRNGKey(1, device)
-    for env_id in IDS + PIXEL_IDS:
+    for env_id in IDS + PIXEL_IDS + GRID_IDS:
         pixel = env_id in PIXEL_IDS
         b, k = (B_PIXEL, K_PIXEL) if pixel else (B_MAIN, K)
         out, chunk = {}, {}
@@ -571,6 +819,8 @@ def phase_parity(torch, device):
             raise AssertionError(f"{env_id}: episode counts differ in "
                                  f"{int((eps_c != eps_t).sum())} lanes")
         torch.testing.assert_close(rew_c, rew_t, rtol=RTOL, atol=ATOL)
+        if env_id in GRID_IDS and not torch.equal(rew_c, rew_t):
+            raise AssertionError(f"{env_id}: rewards differ")
         row = {"id": env_id, "B": b, "episodes": int(eps_c.sum()),
                "max_abs_err_sum_reward": float((rew_c - rew_t).abs().max())}
         if pixel:
@@ -592,8 +842,10 @@ def phase_parity(torch, device):
           "steps": PARITY_STEPS, "rows": rows})
 
 
-def phase_golden(device, backend):
-    """The tests/test_envspec.py::_pool_trace recipe through the port."""
+def phase_golden(device):
+    """The tests/test_envspec.py::_pool_trace recipe through the port, on
+    the backend `make_vec` picks: the CUDA megastep where the id has a
+    body, else vmap (Multitask, the grid pixel ids)."""
     import numpy as np
 
     import repro_torch
@@ -601,12 +853,13 @@ def phase_golden(device, backend):
     from repro_torch.core.spaces import sample_batch
 
     t0 = time.perf_counter()
-    worst = {}
+    worst, backends = {}, {}
     for env_id in GOLDEN_IDS:
         want = json.loads((ROOT / "tests" / "golden" / f"{env_id}.json")
                           .read_text())
         b = want["batch"]
-        pool = repro_torch.make_vec(env_id, b, backend=backend, device=device)
+        pool = repro_torch.make_vec(env_id, b, device=device)
+        backends[env_id] = pool.backend
         h = pool.xla()
         key = R.PRNGKey(sum(map(ord, env_id)), device)
         ps = h.init(key)
@@ -624,26 +877,31 @@ def phase_golden(device, backend):
                                    atol=GOLDEN_TOL, err_msg=env_id)
         worst[env_id] = float(np.abs(np.subtract(rows, want["rows"])).max())
     emit({"phase": "golden", "seconds": time.perf_counter() - t0,
-          "backend": backend, "max_abs_err": worst})
+          "backends": backends, "max_abs_err": worst})
 
 
-def phase_numbers(device, pools, sync):
+def phase_numbers(device, pools, vmap_pools, sync):
     import repro_torch
     from repro_torch import random as R
 
     t0 = time.perf_counter()
     key = R.PRNGKey(2, device)
     rows = []
+    depth = {MULTITASK_ID: MULTITASK_STEPS,
+             **{env_id: GRID_PX_STEPS for env_id in GRID_PX_IDS}}
     runs = [(env_id, pool) for env_id, pool in pools.items()]
+    runs += [(env_id, pool) for env_id, pool in vmap_pools.items()]
     small = repro_torch.make_vec("CartPole-v1", B_SMALL, unroll=K, device=device)
     small.rollout(STEPS, key)
     runs.append(("CartPole-v1", small))
     for env_id, pool in runs:
-        sec = timed(lambda: pool.rollout(STEPS, key), TIMED_RUNS, sync)
+        steps = depth.get(env_id, STEPS)
+        sec = timed(lambda: pool.rollout(steps, key), TIMED_RUNS, sync)
         b = pool.num_envs
-        rows.append({"id": env_id, "B": b, "steps": STEPS,
-                     "unroll": pool.unroll, "seconds_median": sec,
-                     "env_steps_per_s": b * STEPS / sec})
+        rows.append({"id": env_id, "B": b, "steps": steps,
+                     "backend": pool.backend, "unroll": pool.unroll,
+                     "seconds_median": sec,
+                     "env_steps_per_s": b * steps / sec})
     emit({"phase": "numbers", "seconds": time.perf_counter() - t0,
           "timed_runs": TIMED_RUNS, "clock":
           "host perf_counter around rollout + synchronize", "rows": rows})
@@ -671,9 +929,9 @@ def chunk_ops(torch, pool, state, k, key, device):
 
 def phase_render_check(torch, device, pools):
     """Both kernels against their plain versions at the render path's own
-    shapes: per classic id, a K = 1 megastep at B = 65,536 from a state 16
-    steps into the render pool's rollout, and the raster of the frames that
-    step's new state renders to."""
+    shapes: per render id (the classic ones and Maze-v0), a K = 1 megastep
+    at B = 65,536 from a state 16 steps into the render pool's rollout, and
+    the raster of the frames that step's new state renders to."""
     from repro_torch import random as R
     from repro_torch.core.spaces import sample_batch
     from repro_torch.kernels.envstep import megastep_cuda, megastep_ref
@@ -691,16 +949,18 @@ def phase_render_check(torch, device, pools):
                                                 pool.num_envs), k)
             core, spec, max_steps, ops = chunk_ops(
                 torch, pool, ps.env_state, 1, R.fold_in(key, 99), device)
+            grid = spec.name in GRID     # this slice's: bit for bit
             got = megastep_cuda(spec.kernel_id, *ops, max_steps=max_steps)
             m_err = compare(torch, got, megastep_ref(
                 spec.step_rows, *ops, max_steps=max_steps),
-                f"{env_id} render-path step B={pool.num_envs} K=1")
+                f"{env_id} render-path step B={pool.num_envs} K=1",
+                EXACT_ALL if grid else ("done", "truncated"))
             base = core.unwrapped
             segs, intens = base.scene(
                 spec.unflatten(got[0][:spec.state_size]))
             r_err, frames = raster_check(
                 torch, segs.contiguous(), intens.contiguous(),
-                *base.frame_shape, f"{env_id} render-path frames")
+                *base.frame_shape, f"{env_id} render-path frames", grid)
             if not bool(frames.max() > 0.5):
                 raise AssertionError(f"{env_id}: render-path frames blank")
             mega_err, raster_err = max(mega_err, m_err), max(raster_err, r_err)
@@ -832,6 +1092,63 @@ def phase_pixel_split(torch, device, env_id, pool, sync, numbers, bw, flops):
             "S": pre_scene[1].shape[1]}
 
 
+def phase_grid_split(torch, device, pools, sync, numbers, bw, flops):
+    """Per grid or puzzle body, on a real chunk of its main path (B =
+    65,536, K = 32 from the pool's reset): the megastep against its plain
+    version bit for bit, both timed, and the bound. For Maze-v0 and
+    Snake-v0 also the chunk's split: fresh-reset precompute, action
+    sampling, megastep."""
+    from repro_torch import random as R
+    from repro_torch.core.spaces import sample_batch
+    from repro_torch.kernels.envstep import (fresh_rows, megastep_cuda,
+                                             megastep_ref)
+
+    t0 = time.perf_counter()
+    key = R.PRNGKey(3, device)
+    steps = torch.arange(1, K + 1, device=device)
+    bodies, worst = {}, 0.0
+    for env_id in GRID_IDS:
+        pool = pools[env_id]
+        state = pool.xla().init(R.PRNGKey(0, device)).env_state
+        _, spec, max_steps, ops = chunk_ops(torch, pool, state, K, key, device)
+        with uncounted():
+            got = megastep_cuda(spec.kernel_id, *ops, max_steps=max_steps)
+            err = compare(torch, got, megastep_ref(
+                spec.step_rows, *ops, max_steps=max_steps),
+                f"{env_id} main-path chunk B={B_MAIN}", EXACT_ALL)
+            ms = event_ms(torch, lambda: megastep_cuda(
+                spec.kernel_id, *ops, max_steps=max_steps), 20, warmup=3)
+            plain_ms = event_ms(torch, lambda: megastep_ref(
+                spec.step_rows, *ops, max_steps=max_steps), 3, warmup=0)
+        worst = max(worst, err)
+        resets = int(got[4].sum())
+        nbytes = packed_megastep_bytes(B_MAIN, K, spec.state_size + 1,
+                                       spec.obs_size, resets)
+        nops = B_MAIN * K * GRID_OPS_PER_LANE_STEP[spec.name]
+        bound_ms, bound_by = bound(nbytes, nops, bw, flops)
+        row = {"id": env_id, "body": spec.name, "B": B_MAIN, "K": K,
+               "S": spec.state_size + 1, "O": spec.obs_size,
+               "max_abs_err": err, "resets": resets, "ms": ms,
+               "plain_ms": plain_ms, "bytes": nbytes, "ops": nops,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "rollout_chunk_ms": 1e3 * numbers[env_id]["seconds_median"]
+               / (STEPS // K)}
+        if env_id in ("Maze-v0", "Snake-v0"):
+            row["fresh_reset_precompute_ms"] = 1e3 * timed(
+                lambda: fresh_rows(pool.env, state.key, K), 5, sync)
+            row["action_sampling_ms"] = 1e3 * timed(
+                lambda: sample_batch(pool.action_space, R.fold_in(key, steps),
+                                     B_MAIN), 5, sync)
+        bodies[spec.name] = row
+    emit({"phase": "grid_split", "seconds": time.perf_counter() - t0,
+          "bodies": list(bodies.values()),
+          "clock": "kernel: CUDA events over 20 launches, plain over 3; "
+                   "rollout chunk: phase numbers' median over chunks; "
+                   "precompute, sampling: host perf_counter + synchronize, "
+                   "median of 5"})
+    return bodies, worst
+
+
 def main() -> int:
     import torch
 
@@ -850,17 +1167,21 @@ def main() -> int:
     bw, flops = card_rates(name)
     phase_build()
     mega_err = phase_kernel(torch, device)
-    raster_err = phase_raster(torch, device, bw, flops)
-    pools, render_pools, launches = phase_main(torch, device, sync)
+    raster_err, grid_raster = phase_raster(torch, device, bw, flops)
+    pools, vmap_pools, render_pools, launches = phase_main(torch, device, sync)
     errs = phase_render_check(torch, device, render_pools)
     mega_err, raster_err = max(mega_err, errs[0]), max(raster_err, errs[1])
     del render_pools
     phase_parity(torch, device)
-    phase_golden(device, "cuda")
-    numbers = phase_numbers(device, pools, sync)
+    phase_golden(device)
+    numbers = phase_numbers(device, pools, vmap_pools, sync)
+    del vmap_pools
     kernel_ms, plain_ms, spec, split_err = phase_split(
         torch, device, pools["CartPole-v1"], sync, numbers)
     mega_err = max(mega_err, split_err)
+    grid, grid_err = phase_grid_split(torch, device, pools, sync, numbers, bw,
+                                      flops)
+    mega_err = max(mega_err, grid_err)
     pixel = {}
     for env_id in PIXEL_IDS:
         pixel[env_id] = phase_pixel_split(torch, device, env_id, pools[env_id],
@@ -888,6 +1209,9 @@ def main() -> int:
         "library": "none: no single PyTorch call computes it",
         "shape": {"id": "CartPole-v1", "B": B_MAIN, "K": K,
                   "bytes": bytes_moved},
+        "grid_bodies": {n: {k: b[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "bytes", "resets")}
+                        for n, b in grid.items()},
         "card": smi,
     }, {
         "name": "raster",
@@ -907,6 +1231,7 @@ def main() -> int:
                   "live_segments": pong["raster"]["live_segments"],
                   "bytes": pong["raster"]["bytes"],
                   "ops": pong["raster"]["ops"]},
+        "maze_scenes": {"frames": GRID_FRAMES, "S": 64, **grid_raster},
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

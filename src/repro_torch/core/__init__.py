@@ -3,13 +3,14 @@ from repro_torch.core.env import Env, Timestep, supports_fused_step
 from repro_torch.core.pipeline import Transform, build_pipeline, declared_pipeline
 from repro_torch.core.registry import (EnvSpec, make, register_family,
                                        register_spec, registered, spec)
-from repro_torch.core.spaces import Box, Discrete, Space, sample_batch
+from repro_torch.core.spaces import (Box, Discrete, MultiDiscrete, Space,
+                                     sample_batch)
 from repro_torch.core.wrappers import (AutoReset, FrameStack, ObsToPixels,
                                        TimeLimit, Vec, Wrapper)
 
 __all__ = [
     "AutoReset", "Box", "Discrete", "Env", "EnvSpec", "FrameStack",
-    "ObsToPixels", "Space", "TimeLimit",
+    "MultiDiscrete", "ObsToPixels", "Space", "TimeLimit",
     "Timestep", "Transform", "Vec", "Wrapper", "build_pipeline",
     "declared_pipeline", "make", "register_family", "register_spec",
     "registered", "sample_batch", "spec", "supports_fused_step",

@@ -4,7 +4,9 @@ An `Env` holds only static configuration; its dynamics are functions of an
 explicit state. Unlike the JAX package, whose envs step one lane and are
 batched by `vmap`, every env here is batch-native: `reset(keys)` takes keys
 of shape (..., 2) and returns a state NamedTuple whose leaves carry the same
-leading axes, and `step` advances every lane at once.
+leading axes, and `step` advances every lane at once. `step` takes the
+per-step key as the JAX package's does, one key per lane (..., 2); envs
+whose dynamics draw no random numbers ignore it, so it defaults to None.
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ class Env:
     """Base environment.
 
     Contract:
-      reset(keys (..., 2))  -> (state, obs (..., O))
-      step(state, action)   -> Timestep over the same lanes
+      reset(keys (..., 2))       -> (state, obs (..., O))
+      step(state, action, keys)  -> Timestep over the same lanes
       render(state)         -> (..., H, W) float32 frames in [0, 1]
 
     An env with a renderer declares `frame_shape = (H, W)` and a capsule
@@ -44,7 +46,8 @@ class Env:
     def reset(self, keys: torch.Tensor) -> Tuple[Any, torch.Tensor]:
         raise NotImplementedError
 
-    def step(self, state: Any, action: torch.Tensor) -> Timestep:
+    def step(self, state: Any, action: torch.Tensor,
+             key: torch.Tensor = None) -> Timestep:
         raise NotImplementedError
 
     def render(self, state: Any) -> torch.Tensor:

@@ -2,9 +2,9 @@
 
 Every id is an `EnvSpec`: a core env factory plus a declarative transform
 pipeline. `register_family` derives a family's `-v<N>` (TimeLimit, or the
-arcade pixel pipeline) and `-raw` (bare core) ids from one call. The pixel
-`-px` ids, construction kwargs and the legacy `register(name, factory)` shim
-come with later slices.
+arcade pixel pipeline), `-px` (the pixel pipeline over a state-observing
+core) and `-raw` (bare core) ids from one call. Construction kwargs and the
+legacy `register(name, factory)` shim come with later slices.
 """
 from __future__ import annotations
 
@@ -39,21 +39,24 @@ def register_spec(spec: EnvSpec) -> EnvSpec:
 
 def register_family(name: str, core_factory: Callable[[], Env], *,
                     max_steps: int, version: int = 0,
-                    obs: str = "state") -> Tuple[EnvSpec, ...]:
-    """Register `{name}-v{version}` and `{name}-raw` (the bare core).
+                    obs: str = "state",
+                    pixel_variant: bool = False) -> Tuple[EnvSpec, ...]:
+    """Register `{name}-v{version}`, `{name}-px` when `pixel_variant`, and
+    `{name}-raw` (the bare core).
 
     `-v` is TimeLimit(max_steps); with `obs="pixels"` it is the arcade
-    pipeline TimeLimit -> ObsToPixels -> FrameStack(4).
+    pipeline TimeLimit -> ObsToPixels -> FrameStack(4), which is also what
+    `-px` is (the grid suite's pixel mode).
     """
     if obs not in ("state", "pixels"):
         raise ValueError(f"obs must be 'state' or 'pixels', got {obs!r}")
-    main = (P.TimeLimit(max_steps),)
-    if obs == "pixels":
-        main += (P.ObsToPixels(), P.FrameStack(4))
-    return (
-        register_spec(EnvSpec(f"{name}-v{version}", core_factory, main)),
-        register_spec(EnvSpec(f"{name}-raw", core_factory)),
-    )
+    pixels = (P.TimeLimit(max_steps), P.ObsToPixels(), P.FrameStack(4))
+    main = pixels if obs == "pixels" else (P.TimeLimit(max_steps),)
+    out = [register_spec(EnvSpec(f"{name}-v{version}", core_factory, main))]
+    if pixel_variant:
+        out.append(register_spec(EnvSpec(f"{name}-px", core_factory, pixels)))
+    out.append(register_spec(EnvSpec(f"{name}-raw", core_factory)))
+    return tuple(out)
 
 
 def registered() -> list:

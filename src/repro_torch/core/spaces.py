@@ -2,8 +2,7 @@
 
 Static frozen dataclasses with torch dtypes. `sample_batch` draws a whole
 batch from one key with the same threefry call sequence as the JAX package,
-so sampled actions match it bit for bit. `MultiDiscrete` comes with the grid
-slice.
+so sampled actions match it bit for bit.
 """
 from __future__ import annotations
 
@@ -45,6 +44,19 @@ class Box(Space):
     dtype: torch.dtype = torch.float32
 
 
+@dataclasses.dataclass(frozen=True)
+class MultiDiscrete(Space):
+    """A vector of independent Discrete axes, axis i in {0..nvec[i]-1}: the
+    grid suite's cell-code observations."""
+
+    nvec: Tuple[int, ...]
+    dtype: torch.dtype = torch.int32
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (len(self.nvec),)
+
+
 def sample_batch(space: Space, key: torch.Tensor, batch_size: int) -> torch.Tensor:
     """Sample a batch from ONE key (one threefry stream, not B).
 
@@ -64,7 +76,10 @@ def sample_batch(space: Space, key: torch.Tensor, batch_size: int) -> torch.Tens
                 "element; per-element bounds come with a later slice")
         # Python scalars, so sampling makes no host-to-device copy.
         return R.uniform(key, shape) * float(span.flat[0]) + float(low.flat[0])
+    if isinstance(space, MultiDiscrete):
+        # one randint with a per-axis maxval, as the JAX package draws it
+        return R.randint(key, (batch_size, len(space.nvec)), 0, space.nvec)
     raise TypeError(f"sample_batch does not support {type(space).__name__}")
 
 
-__all__ = ["Box", "Discrete", "Space", "sample_batch"]
+__all__ = ["Box", "Discrete", "MultiDiscrete", "Space", "sample_batch"]

@@ -42,8 +42,8 @@ class Wrapper(Env):
     def reset(self, keys):
         return self.env.reset(keys)
 
-    def step(self, state, action):
-        return self.env.step(state, action)
+    def step(self, state, action, key=None):
+        return self.env.step(state, action, key)
 
     def render(self, state):
         return self.env.render(state)
@@ -73,8 +73,8 @@ class TimeLimit(Wrapper):
         t = torch.zeros(keys.shape[:-1], dtype=torch.int32, device=keys.device)
         return TimeLimitState(inner, t), obs
 
-    def step(self, state: TimeLimitState, action):
-        ts = self.env.step(state.inner, action)
+    def step(self, state: TimeLimitState, action, key=None):
+        ts = self.env.step(state.inner, action, key)
         t = state.t + 1
         truncated = (t >= self.max_steps) & ~ts.done
         info = dict(ts.info)
@@ -102,7 +102,8 @@ def _where(done: torch.Tensor, a, b):
 class AutoReset(Wrapper):
     """Reset lanes whose episode ended, from each lane's own key chain.
 
-    The pre-reset observation is surfaced in `info["terminal_obs"]`.
+    The pre-reset observation is surfaced in `info["terminal_obs"]`; the
+    step's key goes to the env's `step` untouched.
     """
 
     def reset(self, keys):
@@ -110,8 +111,8 @@ class AutoReset(Wrapper):
         inner, obs = self.env.reset(pair[..., 1, :])
         return AutoResetState(inner, pair[..., 0, :]), obs
 
-    def step(self, state: AutoResetState, action):
-        ts = self.env.step(state.inner, action)
+    def step(self, state: AutoResetState, action, key=None):
+        ts = self.env.step(state.inner, action, key)
         pair = R.split(state.key)
         fresh_state, fresh_obs = self.env.reset(pair[..., 1, :])
         info = dict(ts.info)
@@ -128,10 +129,10 @@ class AutoReset(Wrapper):
 class Vec(Wrapper):
     """`num_envs` lanes of one env stack.
 
-    `reset(key)` splits one key into a key per lane, as the JAX `Vec` does.
-    `step` needs no key: the JAX `Vec.step` splits a per-lane key that no
-    ported env's dynamics read, so leaving it out changes no output
-    (tests/test_torch_pool.py holds the trajectories to the JAX pool).
+    `reset(key)` and `step(state, action, key)` split one key into a key per
+    lane, as the JAX `Vec` does; the lane keys reach the env's `step`, where
+    Multitask draws its new ball and obstacle from them. A `step` without a
+    key hands the env none, which only envs free of randomness accept.
     """
 
     def __init__(self, env: Env, num_envs: int):
@@ -140,6 +141,10 @@ class Vec(Wrapper):
 
     def reset(self, key):
         return self.env.reset(R.split(key, self.num_envs))
+
+    def step(self, state, action, key=None):
+        keys = None if key is None else R.split(key, self.num_envs)
+        return self.env.step(state, action, keys)
 
 
 class ObsToPixels(Wrapper):
@@ -155,8 +160,8 @@ class ObsToPixels(Wrapper):
         state, _ = self.env.reset(keys)
         return state, self.env.render(state)
 
-    def step(self, state, action):
-        ts = self.env.step(state, action)
+    def step(self, state, action, key=None):
+        ts = self.env.step(state, action, key)
         return ts._replace(obs=self.env.render(ts.state))
 
 
@@ -194,8 +199,8 @@ class FrameStack(Wrapper):
             lead + (self.num_frames,) + frame).contiguous()
         return FrameStackState(inner, frames), frames
 
-    def step(self, state: FrameStackState, action):
-        ts = self.env.step(state.inner, action)
+    def step(self, state: FrameStackState, action, key=None):
+        ts = self.env.step(state.inner, action, key)
         d = self._frame_dims()
         frames = torch.cat([state.frames.narrow(-d - 1, 1, self.num_frames - 1),
                             ts.obs.unsqueeze(-d - 1)], -d - 1)

@@ -4,7 +4,9 @@
 // src/repro/kernels/envstep/megastep.py::megastep_pallas (body
 // _megastep_kernel, step order fused_transition; env bodies from
 // src/repro/kernels/envstep/specs.py::_cartpole_rows, _mountain_car_rows,
-// _pendulum_rows, _acrobot_rows, _pong_rows, _breakout_rows).
+// _pendulum_rows, _acrobot_rows, _pong_rows, _breakout_rows,
+// _lightsout_rows, _frozen_lake_rows, _cliff_walk_rows, _maze_rows,
+// _snake_rows).
 //
 // Each step: the env body advances the state, the TimeLimit counter row
 // counts and cuts, and AutoReset selects the precomputed fresh state and
@@ -28,6 +30,24 @@
 // no separate observation array; the kernel stores the new state rows as
 // the observation.
 //
+// The grid and puzzle bodies (LightsOut, FrozenLake, CliffWalk, Maze,
+// Snake) run a second kernel, packed_megastep_kernel, with the same layout
+// and step order. The TPU kernel reduces them over (m, B) planes of cells;
+// here a lane's cells are loops unrolled over the compile-time cell count.
+// Their state is up to 77 rows and their observation up to 64 cell codes,
+// too many floats to hold and index in registers, so each body keeps a
+// packed state: its 0/1 planes (LightsOut's lights, FrozenLake's holes,
+// CliffWalk's cliff, Maze's walls) as the bits of one integer, so a cell is
+// a shift, the cross toggle an XOR and "all lights off" a compare with 0;
+// cell indices as ints; Snake's ages as ints and its food priorities as
+// floats. The observation is computed code by code as it is stored, and
+// the fresh state and observation are read only where a lane resets. The
+// bodies take states of the envs' own form (0/1 planes, integer cells), as
+// every reset and step makes them; their integer arithmetic is exact, and
+// Snake's one float sum is rounded as the plain version rounds it. They are
+// bound by bytes too, mostly the obs and terminal_obs codes they write:
+// 2·O floats a lane-step, 512 of Maze's 528 bytes.
+//
 // Numbers: the kernel must give the bits of the plain PyTorch version
 // (kernels/envstep/ref.py) on the card, op by op. So every constant is
 // computed in double, as the Python modules compute it, and rounded to float
@@ -40,6 +60,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -373,6 +395,275 @@ struct Breakout {
   }
 };
 
+// -- The grid and puzzle bodies (packed_megastep_kernel) ---------------------
+// Each has a packed `State` in registers and:
+//   load(st, rows, b)   the state from rows[r * b], r < S (a lane's column)
+//   store(st, rows, b)  the state back to its rows
+//   step(st, a, reward, done)
+//   code(st, i)         observation row i of the state, a float
+// Every loop over cells is unrolled, so no register array is indexed at run
+// time.
+struct Packed {};
+
+__device__ __forceinline__ float bit(unsigned long long plane, int i) {
+  return (plane >> i) & 1ull ? 1.0f : 0.0f;
+}
+
+template <int M>
+__device__ __forceinline__ unsigned long long load_plane(const float* rows,
+                                                         size_t b) {
+  unsigned long long plane = 0ull;
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+    plane |= (rows[i * b] > 0.0f ? 1ull : 0ull) << i;
+  return plane;
+}
+
+template <int M>
+__device__ __forceinline__ void store_plane(unsigned long long plane,
+                                            float* rows, size_t b) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) rows[i * b] = bit(plane, i);
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (hi < v ? hi : v);
+}
+
+// Gym FrozenLake action order: 0 left, 1 down, 2 right, 3 up; another
+// action stands still (envs/grid/common.py::move_deltas).
+__device__ __forceinline__ int grid_dr(float a) {
+  return (a == 1.0f ? 1 : 0) - (a == 3.0f ? 1 : 0);
+}
+__device__ __forceinline__ int grid_dc(float a) {
+  return (a == 2.0f ? 1 : 0) - (a == 0.0f ? 1 : 0);
+}
+
+// The edge-clipped cell a move leads to.
+template <int kRows, int kCols>
+__device__ __forceinline__ int grid_move(int pos, float a) {
+  const int r = pos / kCols, c = pos % kCols;
+  return clampi(r + grid_dr(a), 0, kRows - 1) * kCols +
+         clampi(c + grid_dc(a), 0, kCols - 1);
+}
+
+// -- LightsOut (envs/puzzle.py) -----------------------------------------------
+struct LightsOut : Packed {
+  static constexpr int N = 5, M = N * N, S = M + 1, O = M;
+  struct State {
+    unsigned long long board;   // bit i: cell i lit
+    float t;
+  };
+  __device__ __forceinline__ static void load(State& st, const float* rows,
+                                              size_t b) {
+    st.board = load_plane<M>(rows, b);
+    st.t = rows[M * b];
+  }
+  __device__ __forceinline__ static void store(const State& st, float* rows,
+                                               size_t b) {
+    store_plane<M>(st.board, rows, b);
+    rows[M * b] = st.t;
+  }
+  __device__ __forceinline__ static void step(State& st, float a, float& reward,
+                                              float& done) {
+    const int p = (int)a, r = p / N, c = p % N;
+    unsigned long long cross = 1ull << p;
+    if (r > 0) cross |= 1ull << (p - N);
+    if (r < N - 1) cross |= 1ull << (p + N);
+    if (c > 0) cross |= 1ull << (p - 1);
+    if (c < N - 1) cross |= 1ull << (p + 1);
+    st.board ^= cross;
+    st.t = st.t + 1.0f;
+    done = st.board == 0ull ? 1.0f : 0.0f;
+    reward = st.board == 0ull ? 10.0f : -1.0f;
+  }
+  __device__ __forceinline__ static float code(const State& st, int i) {
+    return bit(st.board, i);
+  }
+};
+
+// -- FrozenLake (envs/grid/frozen_lake.py) ------------------------------------
+struct FrozenLake : Packed {
+  static constexpr int N = 4, M = N * N, S = 1 + M, O = M;
+  struct State {
+    int pos;
+    unsigned long long holes;
+  };
+  __device__ __forceinline__ static void load(State& st, const float* rows,
+                                              size_t b) {
+    st.pos = (int)rows[0];
+    st.holes = load_plane<M>(rows + b, b);
+  }
+  __device__ __forceinline__ static void store(const State& st, float* rows,
+                                               size_t b) {
+    rows[0] = (float)st.pos;
+    store_plane<M>(st.holes, rows + b, b);
+  }
+  __device__ __forceinline__ static void step(State& st, float a, float& reward,
+                                              float& done) {
+    st.pos = grid_move<N, N>(st.pos, a);
+    const bool goal = st.pos == M - 1;
+    done = ((st.holes >> st.pos) & 1ull) || goal ? 1.0f : 0.0f;
+    reward = goal ? 1.0f : 0.0f;
+  }
+  __device__ __forceinline__ static float code(const State& st, int i) {
+    return i == st.pos ? 3.0f : (i == M - 1 ? 2.0f : bit(st.holes, i));
+  }
+};
+
+// -- CliffWalk (envs/grid/cliff_walk.py) --------------------------------------
+struct CliffWalk : Packed {
+  static constexpr int kRows = 4, kCols = 12, M = kRows * kCols, S = 1 + M,
+                       O = M, kStart = (kRows - 1) * kCols;
+  struct State {
+    int pos;
+    unsigned long long cliff;
+  };
+  __device__ __forceinline__ static void load(State& st, const float* rows,
+                                              size_t b) {
+    st.pos = (int)rows[0];
+    st.cliff = load_plane<M>(rows + b, b);
+  }
+  __device__ __forceinline__ static void store(const State& st, float* rows,
+                                               size_t b) {
+    rows[0] = (float)st.pos;
+    store_plane<M>(st.cliff, rows + b, b);
+  }
+  __device__ __forceinline__ static void step(State& st, float a, float& reward,
+                                              float& done) {
+    const int npos = grid_move<kRows, kCols>(st.pos, a);
+    const bool fell = (st.cliff >> npos) & 1ull;
+    done = npos == M - 1 ? 1.0f : 0.0f;   // the goal, before a fall
+    st.pos = fell ? kStart : npos;
+    reward = fell ? -100.0f : -1.0f;
+  }
+  __device__ __forceinline__ static float code(const State& st, int i) {
+    return i == st.pos ? 3.0f : (i == M - 1 ? 2.0f : bit(st.cliff, i));
+  }
+};
+
+// -- Maze (envs/grid/maze.py) -------------------------------------------------
+struct Maze : Packed {
+  static constexpr int N = 8, M = N * N, S = 2 + M, O = M;
+  struct State {
+    int pos, goal;
+    unsigned long long walls;
+  };
+  __device__ __forceinline__ static void load(State& st, const float* rows,
+                                              size_t b) {
+    st.pos = (int)rows[0];
+    st.goal = (int)rows[b];
+    st.walls = load_plane<M>(rows + 2 * b, b);
+  }
+  __device__ __forceinline__ static void store(const State& st, float* rows,
+                                               size_t b) {
+    rows[0] = (float)st.pos;
+    rows[b] = (float)st.goal;
+    store_plane<M>(st.walls, rows + 2 * b, b);
+  }
+  __device__ __forceinline__ static void step(State& st, float a, float& reward,
+                                              float& done) {
+    const int cand = grid_move<N, N>(st.pos, a);
+    if (!((st.walls >> cand) & 1ull)) st.pos = cand;
+    done = st.pos == st.goal ? 1.0f : 0.0f;
+    reward = done;
+  }
+  __device__ __forceinline__ static float code(const State& st, int i) {
+    return i == st.pos ? 3.0f : (i == st.goal ? 2.0f : bit(st.walls, i));
+  }
+};
+
+// -- Snake (envs/grid/snake.py) -----------------------------------------------
+namespace snake {
+constexpr float kPhi = (float)0.6180339887498949;   // rounded once
+}  // namespace snake
+
+// Rows: head, food, length, eaten, ages (36), prio (36) (the spec's
+// field_order). Ages are integers up to 36 and priorities floats, 72
+// registers; every access is at an unrolled, compile-time cell index.
+struct Snake : Packed {
+  static constexpr int N = 6, M = N * N, S = 4 + 2 * M, O = M;
+  struct State {
+    int head, food, length, eaten;
+    int ages[M];
+    float prio[M];
+  };
+  __device__ __forceinline__ static void load(State& st, const float* rows,
+                                              size_t b) {
+    st.head = (int)rows[0];
+    st.food = (int)rows[b];
+    st.length = (int)rows[2 * b];
+    st.eaten = (int)rows[3 * b];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      st.ages[i] = (int)rows[(4 + i) * b];
+      st.prio[i] = rows[(4 + M + i) * b];
+    }
+  }
+  __device__ __forceinline__ static void store(const State& st, float* rows,
+                                               size_t b) {
+    rows[0] = (float)st.head;
+    rows[b] = (float)st.food;
+    rows[2 * b] = (float)st.length;
+    rows[3 * b] = (float)st.eaten;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      rows[(4 + i) * b] = (float)st.ages[i];
+      rows[(4 + M + i) * b] = st.prio[i];
+    }
+  }
+  __device__ __forceinline__ static void step(State& st, float a, float& reward,
+                                              float& done) {
+    const int r = st.head / N, c = st.head % N;
+    const int nr = r + grid_dr(a), nc = c + grid_dc(a);
+    const bool inb = nr >= 0 && nr < N && nc >= 0 && nc < N;
+    const int cand = clampi(nr, 0, N - 1) * N + clampi(nc, 0, N - 1);
+    const bool eat = inb && cand == st.food;
+    // The tail leaves one cell unless eating; a move into the cell just
+    // left is legal.
+    bool hit = false;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int age = st.ages[i] - (eat ? 0 : 1);
+      st.ages[i] = age < 0 ? 0 : age;
+      if (i == cand && st.ages[i] > 0) hit = true;
+    }
+    const bool die = !inb || hit;
+    st.length += eat ? 1 : 0;
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      if (i == cand) st.ages[i] = st.length;
+    const bool over = die || st.length >= M;
+    st.eaten += eat ? 1 : 0;
+    if (eat && !over) {
+      // The k-th food: the free cell minimising frac(prio + k·phi), ties to
+      // the lowest index (snake.py::place_food). The product and the sum
+      // are rounded apart, as PyTorch rounds them; nvcc would fuse a plain
+      // `prio + k * phi` into one FMA.
+      const float k = __fmul_rn((float)st.eaten, snake::kPhi);
+      float v[M], vmin = 2.0f;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const float s = __fadd_rn(st.prio[i], k);
+        v[i] = st.ages[i] == 0 && i != cand ? __fsub_rn(s, floorf(s)) : 2.0f;
+        vmin = v[i] < vmin ? v[i] : vmin;
+      }
+      int placed = M;
+#pragma unroll
+      for (int i = M - 1; i >= 0; --i)
+        if (v[i] == vmin) placed = i;
+      st.food = placed;
+    }
+    st.head = cand;
+    done = over ? 1.0f : 0.0f;
+    reward = (eat ? 1.0f : 0.0f) + (die ? -1.0f : 0.0f);
+  }
+  __device__ __forceinline__ static float code(const State& st, int i) {
+    return i == st.head ? 2.0f
+                        : (st.ages[i] > 0 ? 1.0f : (i == st.food ? 3.0f : 0.0f));
+  }
+};
+
 constexpr int kBlock = 128;
 
 template <class Env, bool kTimeLimit>
@@ -426,6 +717,81 @@ megastep_kernel(const float* __restrict__ state, const float* __restrict__ act,
   for (int r = 0; r < SP; ++r) out_state[r * b + lane] = rows[r];
 }
 
+// The grid and puzzle bodies: the step order of megastep_kernel over a
+// packed state. The observation is written code by code; a lane that resets
+// reads its fresh state and observation, the others read neither.
+template <class Env, bool kTimeLimit>
+__global__ void __launch_bounds__(kBlock)
+packed_megastep_kernel(const float* __restrict__ state,
+                       const float* __restrict__ act,
+                       const float* __restrict__ fresh,
+                       const float* __restrict__ fresh_obs,
+                       float* __restrict__ out_state, float* __restrict__ obs,
+                       float* __restrict__ tobs, float* __restrict__ rew,
+                       float* __restrict__ done_out,
+                       float* __restrict__ trunc_out, int B, int K,
+                       int max_steps) {
+  constexpr int S = Env::S, O = Env::O, SP = S + (kTimeLimit ? 1 : 0);
+  const int lane = blockIdx.x * kBlock + threadIdx.x;
+  if (lane >= B) return;
+  const size_t b = (size_t)B;
+  const float limit = (float)max_steps;
+
+  typename Env::State st;
+  Env::load(st, state + lane, b);
+  float tcnt = kTimeLimit ? state[S * b + lane] : 0.0f;
+
+  for (int t = 0; t < K; ++t) {
+    float reward, done;
+    Env::step(st, act[t * b + lane], reward, done);
+    float trunc = 0.0f;
+    if constexpr (kTimeLimit) {
+      tcnt = tcnt + 1.0f;
+      const float hit = tcnt >= limit ? 1.0f : 0.0f;
+      trunc = mul(hit, 1.0f - done);
+      done = fmaxf(done, hit);
+    }
+    const bool reset = done > 0.0f;
+    float* o_out = obs + (size_t)t * O * b + lane;
+    float* to_out = tobs + (size_t)t * O * b + lane;
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+      const float code = Env::code(st, i);
+      to_out[i * b] = code;
+      if (!reset) o_out[i * b] = code;
+    }
+    if (reset) {
+      const float* f = fresh + (size_t)t * SP * b + lane;
+      const float* fo = fresh_obs + (size_t)t * O * b + lane;
+      Env::load(st, f, b);
+      if constexpr (kTimeLimit) tcnt = f[S * b];
+#pragma unroll
+      for (int i = 0; i < O; ++i) o_out[i * b] = fo[i * b];
+    }
+    rew[t * b + lane] = reward;
+    done_out[t * b + lane] = done;
+    trunc_out[t * b + lane] = trunc;
+  }
+  Env::store(st, out_state + lane, b);
+  if constexpr (kTimeLimit) out_state[S * b + lane] = tcnt;
+}
+
+template <class Env, bool kTimeLimit>
+void launch_body(int grid, cudaStream_t stream, int B, int K, int max_steps,
+                 const float* state, const float* act, const float* fresh,
+                 const float* fresh_obs, float* out_state, float* obs,
+                 float* tobs, float* rew, float* done, float* trunc) {
+  if constexpr (std::is_base_of<Packed, Env>::value) {
+    packed_megastep_kernel<Env, kTimeLimit><<<grid, kBlock, 0, stream>>>(
+        state, act, fresh, fresh_obs, out_state, obs, tobs, rew, done, trunc,
+        B, K, max_steps);
+  } else {
+    megastep_kernel<Env, kTimeLimit><<<grid, kBlock, 0, stream>>>(
+        state, act, fresh, fresh_obs, out_state, obs, tobs, rew, done, trunc,
+        B, K, max_steps);
+  }
+}
+
 template <class Env>
 void launch(bool time_limit, int B, int K, int max_steps, const float* state,
             const float* act, const float* fresh, const float* fresh_obs,
@@ -433,20 +799,19 @@ void launch(bool time_limit, int B, int K, int max_steps, const float* state,
             float* trunc, cudaStream_t stream) {
   const int grid = (B + kBlock - 1) / kBlock;
   if (time_limit) {
-    megastep_kernel<Env, true><<<grid, kBlock, 0, stream>>>(
-        state, act, fresh, fresh_obs, out_state, obs, tobs, rew, done, trunc,
-        B, K, max_steps);
+    launch_body<Env, true>(grid, stream, B, K, max_steps, state, act, fresh,
+                           fresh_obs, out_state, obs, tobs, rew, done, trunc);
   } else {
-    megastep_kernel<Env, false><<<grid, kBlock, 0, stream>>>(
-        state, act, fresh, fresh_obs, out_state, obs, tobs, rew, done, trunc,
-        B, K, max_steps);
+    launch_body<Env, false>(grid, stream, B, K, max_steps, state, act, fresh,
+                            fresh_obs, out_state, obs, tobs, rew, done, trunc);
   }
 }
 
 }  // namespace
 
-// body: 0 CartPole, 1 MountainCar, 2 Pendulum, 3 Acrobot, 4 Pong, 5 Breakout
-// (megastep.py BODIES);
+// body: 0 CartPole, 1 MountainCar, 2 Pendulum, 3 Acrobot, 4 Pong, 5 Breakout,
+// 6 LightsOut, 7 FrozenLake, 8 CliffWalk, 9 Maze, 10 Snake (megastep.py
+// BODIES);
 // max_steps < 0: no TimeLimit. Returns the launch's cudaError_t.
 extern "C" int megastep(int body, int max_steps, int B, int K,
                         const float* state, const float* act,
@@ -479,6 +844,26 @@ extern "C" int megastep(int body, int max_steps, int B, int K,
     case 5:
       launch<Breakout>(tl, B, K, max_steps, state, act, fresh, fresh_obs,
                        out_state, obs, tobs, rew, done, trunc, s);
+      break;
+    case 6:
+      launch<LightsOut>(tl, B, K, max_steps, state, act, fresh, fresh_obs,
+                        out_state, obs, tobs, rew, done, trunc, s);
+      break;
+    case 7:
+      launch<FrozenLake>(tl, B, K, max_steps, state, act, fresh, fresh_obs,
+                         out_state, obs, tobs, rew, done, trunc, s);
+      break;
+    case 8:
+      launch<CliffWalk>(tl, B, K, max_steps, state, act, fresh, fresh_obs,
+                        out_state, obs, tobs, rew, done, trunc, s);
+      break;
+    case 9:
+      launch<Maze>(tl, B, K, max_steps, state, act, fresh, fresh_obs,
+                   out_state, obs, tobs, rew, done, trunc, s);
+      break;
+    case 10:
+      launch<Snake>(tl, B, K, max_steps, state, act, fresh, fresh_obs,
+                    out_state, obs, tobs, rew, done, trunc, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

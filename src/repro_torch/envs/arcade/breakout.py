@@ -70,7 +70,7 @@ class Breakout(Env):
             s.bricks.reshape(s.bricks.shape[:-2] + (-1,)).to(torch.float32),
         ], -1)
 
-    def step(self, state: BreakoutState, action):
+    def step(self, state: BreakoutState, action, key=None):
         move = (action - 1).to(torch.float32)  # {-1, 0, +1}
         paddle_x = (state.paddle_x + move * PADDLE_SPEED).clamp(
             PADDLE_HALF, 1.0 - PADDLE_HALF)

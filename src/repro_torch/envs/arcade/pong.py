@@ -67,7 +67,7 @@ class Pong(Env):
         # obs == flattened state, in flatten-row order (fused-spec contract)
         return torch.stack(list(s), -1)
 
-    def step(self, state: PongState, action):
+    def step(self, state: PongState, action, key=None):
         move = (action - 1).to(torch.float32)  # {-1, 0, +1}
         player_y = (state.player_y + move * PADDLE_SPEED).clamp(
             PADDLE_HALF, 1.0 - PADDLE_HALF)

@@ -89,7 +89,7 @@ class Acrobot(Env):
                             torch.cos(s.theta2), torch.sin(s.theta2),
                             s.dtheta1, s.dtheta2], -1)
 
-    def step(self, state: AcrobotState, action):
+    def step(self, state: AcrobotState, action, key=None):
         torque = action - 1.0  # TORQUES = [-1, 0, 1]
         ns = _rk4(torch.stack(list(state), -1), torque)
         theta1 = _wrap(ns[..., 0], -math.pi, math.pi)

@@ -55,7 +55,7 @@ class CartPole(Env):
     def _obs(s: CartPoleState):
         return torch.stack([s.x, s.x_dot, s.theta, s.theta_dot], -1)
 
-    def step(self, state: CartPoleState, action):
+    def step(self, state: CartPoleState, action, key=None):
         force = torch.full_like(state.x, -FORCE_MAG).masked_fill_(action == 1,
                                                                   FORCE_MAG)
         costheta, sintheta = torch.cos(state.theta), torch.sin(state.theta)

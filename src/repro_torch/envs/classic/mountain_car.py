@@ -40,7 +40,7 @@ class MountainCar(Env):
     def _obs(s):
         return torch.stack([s.position, s.velocity], -1)
 
-    def step(self, state: MountainCarState, action):
+    def step(self, state: MountainCarState, action, key=None):
         velocity = (state.velocity + (action - 1) * FORCE
                     + torch.cos(3 * state.position) * (-GRAVITY))
         velocity = velocity.clamp(-MAX_SPEED, MAX_SPEED)

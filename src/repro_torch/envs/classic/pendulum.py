@@ -47,7 +47,7 @@ class Pendulum(Env):
         return torch.stack([torch.cos(s.theta), torch.sin(s.theta), s.theta_dot],
                            -1)
 
-    def step(self, state: PendulumState, action):
+    def step(self, state: PendulumState, action, key=None):
         # (B, 1) actions from the pool, (B,) action rows from the megastep
         u = action.reshape(state.theta.shape).clamp(-MAX_TORQUE, MAX_TORQUE)
         th, thdot = state.theta, state.theta_dot

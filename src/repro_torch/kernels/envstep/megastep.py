@@ -30,6 +30,11 @@ BODIES = {
     "Acrobot": Body(3, 4, 6),
     "Pong": Body(4, 6, 6),
     "Breakout": Body(5, 29, 29),
+    "LightsOut": Body(6, 26, 25),
+    "FrozenLake": Body(7, 17, 16),
+    "CliffWalk": Body(8, 49, 48),
+    "Maze": Body(9, 66, 64),
+    "Snake": Body(10, 76, 36),
 }
 _BY_ID = {b.kernel_id: b for b in BODIES.values()}
 

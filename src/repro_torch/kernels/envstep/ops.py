@@ -122,7 +122,8 @@ def fresh_rows(env, keys: torch.Tensor, num_steps: int):
     `reset` over (K, B) keys. For a pixel stack the core sub-stack is reset
     (the pixel wrappers pass the key through untouched), and the fresh
     frames are rendered later from the obs rows. Returns (final_keys
-    (B, 2), fresh_rows (K, S', B), fresh_obs_rows (K, O, B)), contiguous.
+    (B, 2), fresh_rows (K, S', B), fresh_obs_rows (K, O, B)), the rows
+    contiguous float32, as the megastep takes them.
     """
     env, spec, max_steps = _resolve(env)[:3]
     reset_keys = []
@@ -132,7 +133,7 @@ def fresh_rows(env, keys: torch.Tensor, num_steps: int):
         reset_keys.append(pair[..., 1, :])
     fresh_states, fresh_obs = env.reset(torch.stack(reset_keys))
     return (keys, state_rows(spec, max_steps, fresh_states).contiguous(),
-            fresh_obs.transpose(-1, -2).contiguous())
+            fresh_obs.transpose(-1, -2).to(torch.float32).contiguous())
 
 
 def _render_obs_rows(core, spec, obs_rows, backend):
@@ -192,10 +193,10 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
     if found is None:
         raise NotImplementedError(
             f"no fused megastep spec for {env!r}; supported: CartPole, "
-            "MountainCar, Pendulum, Acrobot, Pong, Breakout, bare or under "
-            "one TimeLimit, the arcade games also under ObsToPixels or "
-            "FrameStack(ObsToPixels) (the grid, puzzle and multitask bodies "
-            "come with their slice, ROADMAP A9)")
+            "MountainCar, Pendulum, Acrobot, LightsOut, Pong, Breakout, "
+            "FrozenLake, CliffWalk, Snake, Maze, bare or under one "
+            "TimeLimit, the arcade games also under ObsToPixels or "
+            "FrameStack(ObsToPixels)")
     core, spec, max_steps, num_stack, pixels = found
 
     acts = actions
@@ -221,11 +222,14 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
         inner = TimeLimitState(inner, new_rows[spec.state_size].to(torch.int32))
         info["truncated"] = trunc.to(torch.bool)
     if not pixels:
-        info["terminal_obs"] = tobs.transpose(-1, -2)
+        # The kernel computes in float32 rows; integer observations (the
+        # grid suite's cell codes) get their dtype back, exactly.
+        odt = core.observation_space.dtype
+        info["terminal_obs"] = tobs.transpose(-1, -2).to(odt)
         new_state = AutoResetState(inner, final_keys)
         return new_state, Timestep(state=new_state,
-                                   obs=obs.transpose(-1, -2), reward=reward,
-                                   done=done, info=info)
+                                   obs=obs.transpose(-1, -2).to(odt),
+                                   reward=reward, done=done, info=info)
 
     # Pixel pipeline: the chunk's stepped (pre-reset) and fresh frames in
     # two batched raster launches, then the auto-reset select and, under a

@@ -11,7 +11,11 @@ single lane. `kernel_id` picks the same dynamics' body in csrc/megastep.cu.
 
 `obs_is_state` says that the observation is the flattened state, declared
 per env as in the JAX package; it lets the pixel pipeline render every
-step's frame from the kernel's obs rows (ops.py::fused_step).
+step's frame from the kernel's obs rows (ops.py::fused_step). The grid
+suite observes cell codes, not its state, so its `-px` ids run the vmap
+backend, as in the JAX package. Integer state (boards, cell indices, ages)
+rides in the float32 rows; its values are small, so the round trip is
+exact.
 
 `spec_for(core_env)` derives the spec of a supported base env; `lookup(env)`
 also accepts one declared `TimeLimit` over it and returns
@@ -48,19 +52,21 @@ class FusedSpec(NamedTuple):
     obs_is_state: bool = False
 
 
-def derive_layout(env):
+def derive_layout(env, field_order: Optional[Tuple[str, ...]] = None):
     """Read a 1-lane CPU reset: (state_size, obs_size, flatten, unflatten).
 
-    The state NamedTuple's fields, in declaration order, become consecutive
-    row blocks of `prod(field_shape)` rows; the batch stays on the minor
-    axis. Integer fields (Breakout's int32 bricks) ride in the float32 rows;
-    their values are small, so the round trip is exact. `flatten` and
-    `unflatten` accept leading axes before the batch axis (the (K, B)
-    fresh-reset stacks and per-step obs rows of `ops.fused_step`).
+    The state NamedTuple's fields, in declaration order or in `field_order`,
+    become consecutive row blocks of `prod(field_shape)` rows; the batch
+    stays on the minor axis. `flatten` and `unflatten` accept leading axes
+    before the batch axis (the (K, B) fresh-reset stacks and per-step obs
+    rows of `ops.fused_step`).
     """
     state, obs = env.reset(R.PRNGKey(0, device="cpu")[None])
     cls = type(state)
-    fields = tuple(state._fields)
+    fields = tuple(state._fields) if field_order is None else tuple(field_order)
+    if sorted(fields) != sorted(state._fields):
+        raise ValueError(f"field_order {fields} != state fields "
+                         f"{state._fields}")
     shapes = {f: tuple(getattr(state, f).shape[1:]) for f in fields}
     dtypes = {f: getattr(state, f).dtype for f in fields}
     sizes = {f: math.prod(shapes[f]) for f in fields}
@@ -87,18 +93,34 @@ def derive_layout(env):
 def _rows_of(env, flatten, unflatten):
     def step_rows(rows, act):
         ts = env.step(unflatten(rows), act)
-        return (flatten(ts.state), ts.obs.transpose(-1, -2), ts.reward,
-                ts.done.to(torch.float32))
+        return (flatten(ts.state), ts.obs.transpose(-1, -2).to(torch.float32),
+                ts.reward, ts.done.to(torch.float32))
     return step_rows
 
 
+class Fusion(NamedTuple):
+    """What a base env class with a kernel body declares besides its body."""
+
+    obs_is_state: bool
+    field_order: Optional[Tuple[str, ...]] = None
+
+
 def _fused_classes():
-    """Base env classes with a kernel body -> whether obs is the state."""
+    """Base env classes with a kernel body -> their `Fusion`."""
     from repro_torch.envs.arcade import Breakout, Pong
     from repro_torch.envs.classic import Acrobot, CartPole, MountainCar, Pendulum
+    from repro_torch.envs.grid import CliffWalk, FrozenLake, Maze, Snake
+    from repro_torch.envs.puzzle import LightsOut
 
-    return {CartPole: True, MountainCar: True, Pendulum: False,
-            Acrobot: False, Pong: True, Breakout: True}
+    return {CartPole: Fusion(True), MountainCar: Fusion(True),
+            Pendulum: Fusion(False), Acrobot: Fusion(False),
+            Pong: Fusion(True), Breakout: Fusion(True),
+            LightsOut: Fusion(False), FrozenLake: Fusion(False),
+            CliffWalk: Fusion(False), Maze: Fusion(False),
+            # the kernel body reads the scalars (head, food, length, eaten)
+            # first; the state NamedTuple declares `ages` first
+            Snake: Fusion(False, ("head", "food", "length", "eaten", "ages",
+                                  "prio"))}
 
 
 #: per-instance memo: pools look a spec up on every fused chunk
@@ -110,16 +132,17 @@ def spec_for(env) -> Optional[FusedSpec]:
     if env in _SPEC_CACHE:
         return _SPEC_CACHE[env]
     spec = None
-    obs_is_state = _fused_classes().get(type(env))
-    if obs_is_state is not None:
+    fusion = _fused_classes().get(type(env))
+    if fusion is not None:
         body = BODIES[type(env).__name__]
-        state_size, obs_size, flatten, unflatten = derive_layout(env)
+        state_size, obs_size, flatten, unflatten = derive_layout(
+            env, fusion.field_order)
         if (state_size, obs_size) != (body.state_size, body.obs_size):
             raise RuntimeError(f"{type(env).__name__}: layout "
                                f"{(state_size, obs_size)} != kernel body {body}")
         spec = FusedSpec(type(env).__name__, state_size, obs_size, flatten,
                          unflatten, _rows_of(env, flatten, unflatten),
-                         body.kernel_id, obs_is_state)
+                         body.kernel_id, fusion.obs_is_state)
     _SPEC_CACHE[env] = spec
     return spec
 

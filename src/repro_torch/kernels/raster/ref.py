@@ -9,8 +9,9 @@ are inert padding.
 
 Written op by op in the JAX oracle's order, each op rounded on its own:
 `x*x` for `**2`, divisions by Python numbers through `numerics.div` (an
-IEEE division on every device), and `softness = 1/h` computed in double as
-JAX computes it and rounded to float32 once. The segment loop keeps a
+IEEE division on every device), the square root correctly rounded, and
+`softness = 1/h` computed in double as JAX computes it and rounded to
+float32 once. The segment loop keeps a
 running max, so memory stays O(N·H·W) whatever S is. The CPU path of every
 render, and what csrc/raster.cu is held against on the card
 (chip_smoke.py).
@@ -49,7 +50,11 @@ def rasterize_ref(segs: torch.Tensor, intens: torch.Tensor, h: int,
         l2 = (dx * dx + dy * dy).clamp_min(_EPS)
         t = (((px - x0) * dx + (py - y0) * dy) / l2).clamp(0.0, 1.0)
         ex, ey = px - (x0 + t * dx), py - (y0 + t * dy)
-        d = torch.sqrt(ex * ex + ey * ey)
+        # The square root in float64, rounded to float32 once: the correctly
+        # rounded float32 root, as the kernel's sqrtf gives it, on every
+        # device. PyTorch's float32 sqrt on the CPU was seen to return roots
+        # up to 3e-4 off (relative) in some calls.
+        d = torch.sqrt((ex * ex + ey * ey).double()).float()
         cov = ((r - d) / softness + 0.5).clamp(0.0, 1.0) * inten
         fb = torch.maximum(fb, cov)
     return fb

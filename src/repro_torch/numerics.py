@@ -6,7 +6,15 @@ depends on the device is written here once.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def f32(x: float) -> float:
+    """`x` rounded to float32, held as a Python float: a constant that
+    compares or combines with a float32 tensor as JAX's weakly typed Python
+    scalar does, on every device."""
+    return float(np.float32(x))
 
 
 def div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -16,4 +24,4 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / x.new_full((), c)
 
 
-__all__ = ["div"]
+__all__ = ["div", "f32"]

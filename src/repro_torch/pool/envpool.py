@@ -13,11 +13,12 @@ host on the step path. Two surfaces, as in the JAX package:
 Backends: "vmap" steps `Vec(AutoReset(env))` once per step with plain
 tensor ops; "cuda" runs `unroll` steps per launch of the CUDA megastep
 kernel; "torch" runs the megastep's plain PyTorch version (the CPU path).
-Pixel ids (`Pong-v0`, `Breakout-v0`) observe (B, 4, 84, 84) frame stacks
-on every backend; the fused ones render each chunk's frames in two
-launches of the raster kernel ("cuda") or its plain version ("torch").
-The RNG plumbing (pool key, per-step `fold_in`, action sampling) is the JAX
-pool's, so every backend follows the JAX pool's trajectories.
+Pixel ids (`Pong-v0`, `Breakout-v0`, the grid suite's `-px`) observe
+(B, 4, 84, 84) frame stacks on every backend; the fused ones render each
+chunk's frames in two launches of the raster kernel ("cuda") or its plain
+version ("torch"). The RNG plumbing (pool key, per-step keys, action
+sampling) is the JAX pool's, so every backend follows the JAX pool's
+trajectories, Multitask's too, whose dynamics read the per-step key.
 """
 from __future__ import annotations
 
@@ -155,17 +156,22 @@ class EnvPool:
         state, obs = self.venv.reset(key)
         return PoolState(state, obs, R.fold_in(key, 0x57EB))
 
-    def _step_many_core(self, env_state, actions: torch.Tensor):
+    def _step_many_core(self, env_state, actions: torch.Tensor,
+                        key: torch.Tensor):
         """K batched env steps -> (env_state, (obs, reward, done, info)),
-        outputs stacked on a leading (K, ...) axis."""
+        outputs stacked on a leading (K, ...) axis. On the vmap backend step
+        i gets the key `fold_in(key, i)`; the fused backends' dynamics read
+        no per-step key, as in the JAX pool."""
         if self._fused:
             new_state, ts = self.env.fused_step(
                 env_state, actions, num_steps=actions.shape[0],
                 backend=self.backend)
             return new_state, (ts.obs, ts.reward, ts.done, ts.info)
+        keys = R.fold_in(key, torch.arange(actions.shape[0],
+                                           device=key.device))
         outs = []
-        for a in actions:
-            ts = self.venv.step(env_state, a)
+        for a, k in zip(actions, keys):
+            ts = self.venv.step(env_state, a, k)
             env_state = ts.state
             outs.append(ts)
         info = {k: torch.stack([ts.info[k] for ts in outs]) for k in outs[0].info}
@@ -173,22 +179,39 @@ class EnvPool:
                            torch.stack([ts.reward for ts in outs]),
                            torch.stack([ts.done for ts in outs]), info)
 
+    def _next_keys(self, carry: PoolState, key):
+        """(next carry key, step key): without `key` the carry's chain
+        advances and its split gives the step key, as in the JAX pool."""
+        if key is None:
+            pair = R.split(carry.key)
+            return pair[0], pair[1]
+        return carry.key, key
+
     def _xla_step(self, carry: PoolState, actions: torch.Tensor,
                   key: Optional[torch.Tensor] = None
                   ) -> Tuple[PoolState, PoolStep]:
-        ps, out = self._xla_step_many(carry, actions[None], key)
-        return ps, PoolStep(out.obs[0], out.reward[0], out.done[0],
-                            {k: v[0] for k, v in out.info.items()})
+        """One step. The vmap backend hands `key` itself to `Vec.step`,
+        which splits it into lane keys, as the JAX pool's single step does;
+        the fused backends run a one-step chunk."""
+        if self._fused:
+            ps, out = self._xla_step_many(carry, actions[None], key)
+            return ps, PoolStep(out.obs[0], out.reward[0], out.done[0],
+                                {k: v[0] for k, v in out.info.items()})
+        next_key, key = self._next_keys(carry, key)
+        ts = self.venv.step(carry.env_state, actions, key)
+        return (PoolState(ts.state, ts.obs, next_key),
+                PoolStep(ts.obs, ts.reward, ts.done, ts.info))
 
     def _xla_step_many(self, carry: PoolState, actions: torch.Tensor,
                        key: Optional[torch.Tensor] = None
                        ) -> Tuple[PoolState, PoolStep]:
         """Step the pool `actions.shape[0]` times; outputs carry a leading
-        (K, ...) axis. Without `key` the carry's key chain advances, as in
-        the JAX pool; no ported env's dynamics read the per-step key."""
-        next_key = R.split(carry.key)[0] if key is None else carry.key
+        (K, ...) axis. On the vmap backend step i gets `fold_in(key, i)`
+        (`_step_many_core`), where `_xla_step` hands `key` itself to
+        `Vec.step`: the JAX pool keys its two steps so too."""
+        next_key, key = self._next_keys(carry, key)
         state, (obs, reward, done, info) = self._step_many_core(
-            carry.env_state, actions)
+            carry.env_state, actions, key)
         return (PoolState(state, obs[-1], next_key),
                 PoolStep(obs, reward, done, info))
 
@@ -245,7 +268,8 @@ class EnvPool:
 
         Fused backends run `unroll` steps per megastep launch. The RNG is
         the JAX pool's: the carry from `fold_in(key, 0x5EED)`, step i's
-        actions from `fold_in(key, i)`, i in 1..num_steps. `last` is zeros
+        actions (and, on the vmap backend, its step key) from
+        `fold_in(key, i)`, i in 1..num_steps. `last` is zeros
         (B,), or with `render=True` the frame (B, H, W) rendered from the
         state after the last step: render mode renders after every step
         (paper Fig. 1's render column), so it keeps the per-step body, one
@@ -255,17 +279,20 @@ class EnvPool:
         ps = self._xla_init(R.fold_in(key, 0x5EED))
         rew = torch.zeros(self.num_envs, dtype=torch.float32, device=self.device)
         eps = torch.zeros(self.num_envs, dtype=torch.int32, device=self.device)
-        if render:
-            frame = self.venv.render(ps.env_state)
+        last = torch.zeros_like(rew)
+        if render or not self._fused:
+            if render:
+                last = self.venv.render(ps.env_state)
             for i in range(1, num_steps + 1):
                 k = R.fold_in(key, i)
                 acts = sample_batch(self.action_space, k, self.num_envs)
                 ps, out = self._xla_step(ps, acts, k)
                 rew = rew + out.reward
                 eps = eps + out.done.to(torch.int32)
-                frame = self.venv.render(ps.env_state)
-            return rew, eps, frame
-        kk = max(min(self.unroll, num_steps), 1) if self._fused else 1
+                if render:
+                    last = self.venv.render(ps.env_state)
+            return rew, eps, last
+        kk = max(min(self.unroll, num_steps), 1)
         for start in range(1, num_steps + 1, kk):
             n = min(kk, num_steps + 1 - start)
             steps = torch.arange(start, start + n, dtype=R.KEY_DTYPE,
@@ -275,8 +302,7 @@ class EnvPool:
             ps, out = self._xla_step_many(ps, acts, key)
             rew = rew + out.reward.sum(0)
             eps = eps + out.done.sum(0, dtype=torch.int32)
-        return rew, eps, torch.zeros(self.num_envs, dtype=torch.float32,
-                                     device=self.device)
+        return rew, eps, last
 
 
 __all__ = ["EnvPool", "FUSED_BACKENDS", "PoolState", "PoolStep", "XlaPool",

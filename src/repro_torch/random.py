@@ -21,6 +21,8 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.numerics import f32
+
 KEY_DTYPE = torch.int64
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -104,11 +106,6 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return bits.reshape(key.shape[:-1] + shape)
 
 
-def _f32(x: float) -> float:
-    """`x` rounded to float32, held as a Python float (exact in an op)."""
-    return float(np.float32(x))
-
-
 def uniform(key: torch.Tensor, shape: Sequence[int] = (),
             minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """`jax.random.uniform` in float32 with scalar bounds.
@@ -120,7 +117,7 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (),
     """
     bits = random_bits(key, shape)
     one_to_two = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    lo, hi = _f32(minval), _f32(maxval)
+    lo, hi = f32(minval), f32(maxval)
     span = float(np.float32(hi) - np.float32(lo))
     return ((one_to_two - 1.0) * span + lo).clamp_min(lo)
 
@@ -129,25 +126,37 @@ def bernoulli(key: torch.Tensor, p: float = 0.5,
               shape: Sequence[int] = ()) -> torch.Tensor:
     """`jax.random.bernoulli` with a scalar `p`: `uniform(key, shape) < p`,
     p rounded to float32 as JAX takes it."""
-    return uniform(key, shape) < _f32(p)
+    return uniform(key, shape) < f32(p)
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
-            maxval: int) -> torch.Tensor:
-    """`jax.random.randint` into int32 with scalar bounds.
+            maxval) -> torch.Tensor:
+    """`jax.random.randint` into int32 with a scalar `minval`.
 
     Two 32-bit draws per element from the two halves of `split(key)`,
-    combined modulo the span in wrapping uint32 arithmetic.
+    combined modulo the span in wrapping uint32 arithmetic. `maxval` is an
+    int, or a sequence of ints that broadcasts against the trailing axes of
+    `shape` (a `MultiDiscrete` space's `nvec`).
     """
-    minval, maxval = int(minval), int(maxval)
+    minval = int(minval)
     keys = split(key)
     higher = random_bits(keys[..., 0, :], shape)
     lower = random_bits(keys[..., 1, :], shape)
-    span = (maxval - minval) & _MASK if maxval > minval else 1
-    multiplier = (2 ** 16) % span
-    multiplier = (multiplier * multiplier) % span
+    if isinstance(maxval, (int, np.integer)):
+        span, multiplier = _span(minval, int(maxval))
+    else:
+        pairs = [_span(minval, int(m)) for m in maxval]
+        span, multiplier = (torch.tensor(x, dtype=KEY_DTYPE, device=key.device)
+                            for x in zip(*pairs))
     offset = ((higher % span) * multiplier + lower % span) & _MASK
     return (offset % span + minval).to(torch.int32)
+
+
+def _span(minval: int, maxval: int) -> Tuple[int, int]:
+    """randint's span (1 when the range is empty) and 2**32 mod span."""
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    multiplier = (2 ** 16) % span
+    return span, (multiplier * multiplier) % span
 
 
 __all__ = ["KEY_DTYPE", "PRNGKey", "bernoulli", "fold_in", "randint",

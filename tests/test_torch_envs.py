@@ -4,7 +4,8 @@ For CartPole, MountainCar, Pendulum and Acrobot: `reset` from the same keys,
 one `step` from the same numpy-seeded states and actions (wide enough that
 episodes end, speeds clamp and angles wrap), the fused `step_rows`, and the
 derived row layout; and the capsule `scene` and `render` behind
-`rollout(render=True)`. Ints and bools exact; floats to rtol 1e-5 / atol
+`rollout(render=True)`. The derived layout of the five grid and puzzle
+bodies too, Snake's field order included. Ints and bools exact; floats to rtol 1e-5 / atol
 1e-6 (tests/conftest.py::assert_leaves_match), rendered frames to atol
 1e-5 (tests/test_torch_arcade.py::FRAME_ATOL says why). The JAX side runs in the legacy
 threefry layout the goldens were made with.
@@ -18,7 +19,11 @@ import pytest
 import torch
 
 import repro.envs.classic as J
+import repro.envs.grid as JG
+import repro.envs.puzzle as JP
 import repro_torch.envs.classic as T
+import repro_torch.envs.grid as TG
+import repro_torch.envs.puzzle as TP
 from repro.kernels.envstep import spec_for as jax_spec_for
 from repro_torch.kernels.envstep import spec_for
 
@@ -108,14 +113,28 @@ def test_step_rows_match_jax(name):
     _match(np.asarray(want[3])[0], done, f"{name} done row")
 
 
-@pytest.mark.parametrize("name", ENVS)
+def _any_env(name, jax_side):
+    """A classic, grid or puzzle env of either package."""
+    mod = next(m for m in ((J, JG, JP) if jax_side else (T, TG, TP))
+               if hasattr(m, name))
+    return getattr(mod, name)()
+
+
+@pytest.mark.parametrize("name", ENVS + ("LightsOut", "FrozenLake",
+                                         "CliffWalk", "Maze", "Snake"))
 def test_derived_layout_matches_jax(name):
-    jspec, spec = jax_spec_for(getattr(J, name)()), spec_for(getattr(T, name)())
+    """Sizes, the rows of the same reset state (field order included) and
+    the round trip back to the state."""
+    jenv, env = _any_env(name, True), _any_env(name, False)
+    jspec, spec = jax_spec_for(jenv), spec_for(env)
     assert (spec.state_size, spec.obs_size) == (jspec.state_size,
                                                 jspec.obs_size)
-    keys = torch.from_numpy(_keys(4).astype(np.int64))
-    state, _ = getattr(T, name)().reset(keys)
+    keys = _keys(4)
+    with jax.threefry_partitionable(False):
+        want = jspec.flatten(jax.vmap(jenv.reset)(jnp.asarray(keys))[0])
+    state, _ = env.reset(torch.from_numpy(keys.astype(np.int64)))
     rows = spec.flatten(state)
+    _match(want, rows, f"{name} rows")
     assert rows.shape == (spec.state_size, B) and rows.dtype == torch.float32
     back = spec.unflatten(rows)
     assert type(back) is type(state)

@@ -1,8 +1,11 @@
 """The port's plain megastep (`repro_torch.kernels.envstep.megastep_ref`)
 against the JAX package's jnp reference and its Pallas kernel in interpret
-mode, for the four classic bodies and the two arcade ones (Pong, Breakout)
-with and without a TimeLimit, at B = 200 (not a multiple of the 128-lane
-block) and K = 8.
+mode, for the four classic bodies, the two arcade ones (Pong, Breakout) and
+the five grid and puzzle ones (LightsOut, FrozenLake, CliffWalk, Maze,
+Snake) with and without a TimeLimit, at B = 200 (not a multiple of the
+128-lane block) and K = 8. The grid states are those of
+tests/test_torch_grid.py::grid_rows: agents beside holes, cliffs and goals,
+snakes beside food, walls and their own body, boards a move from a win.
 
 The CUDA kernel itself is held against this plain version on the card by
 chip_smoke.py. Here: the dispatch, and that a CPU tensor never reaches it.
@@ -16,17 +19,23 @@ import torch
 
 import repro.envs.arcade as JA
 import repro.envs.classic as JC
+import repro.envs.grid as JG
 import repro_torch.envs.arcade as TA
 import repro_torch.envs.classic as TC
+import repro_torch.envs.grid as TG
+from repro.envs.puzzle import LightsOut as JLightsOut
 from repro.kernels.envstep import megastep_pallas
 from repro.kernels.envstep import megastep_ref as jax_megastep_ref
 from repro.kernels.envstep import spec_for as jax_spec_for
+from repro_torch.envs.puzzle import LightsOut as TLightsOut
 from repro_torch.kernels.envstep import (env_megastep, megastep_cuda,
                                          megastep_ref, spec_for)
+from test_torch_grid import grid_rows
 
 B, K = 200, 8
 MAX_STEPS = {"CartPole": 500, "MountainCar": 200, "Pendulum": 200,
-             "Acrobot": 500, "Pong": 1000, "Breakout": 1000}
+             "Acrobot": 500, "Pong": 1000, "Breakout": 1000, "LightsOut": 100,
+             "FrozenLake": 100, "CliffWalk": 100, "Maze": 200, "Snake": 200}
 STATE_RANGES = {
     "CartPole": [(-2.4, 2.4), (-2.0, 2.0), (-0.21, 0.21), (-2.0, 2.0)],
     "MountainCar": [(-1.2, 0.6), (-0.07, 0.07)],
@@ -41,12 +50,16 @@ STATE_RANGES = {
 #: truncated stay exact). Velocities stay moderate for the same reason;
 #: one step at full speed, clamps included, is held at 1e-6 in
 #: tests/test_torch_envs.py.
-ATOL = {"CartPole": 1e-6, "MountainCar": 1e-6, "Pendulum": 1e-6,
-        "Acrobot": 1e-4, "Pong": 1e-6, "Breakout": 1e-6}
+ATOL = {name: 1e-4 if name == "Acrobot" else 1e-6 for name in MAX_STEPS}
+GRID = ("LightsOut", "FrozenLake", "CliffWalk", "Maze", "Snake")
 CASES = [(name, tl) for name in MAX_STEPS for tl in (True, False)]
 
 
 def _env(name, jax_side):
+    if name == "LightsOut":
+        return JLightsOut() if jax_side else TLightsOut()
+    if name in GRID:
+        return getattr(JG if jax_side else TG, name)()
     arcade = name in ("Pong", "Breakout")
     mod = (JA if arcade else JC) if jax_side else (TA if arcade else TC)
     return getattr(mod, name)()
@@ -72,9 +85,15 @@ def _inputs(name, time_limit, seed=0):
     """numpy-seeded (state, actions, fresh, fresh_obs) rows, float32."""
     rng = np.random.default_rng(seed)
     o = jax_spec_for(_env(name, True)).obs_size
+    grid = grid_rows(name, rng, B) if name in GRID else None
 
     def states(lead):
-        if name in STATE_RANGES:
+        if name in GRID:    # the first state is `grid`, with its steered act
+            draws = [grid[0]] if not lead else [
+                grid_rows(name, rng, B)[0] for _ in range(math.prod(lead))]
+            rows = list(np.moveaxis(
+                np.stack(draws).reshape(lead + (-1, B)), -2, 0))
+        elif name in STATE_RANGES:
             rows = [rng.uniform(lo, hi, lead + (B,))
                     for lo, hi in STATE_RANGES[name]]
         else:
@@ -86,6 +105,9 @@ def _inputs(name, time_limit, seed=0):
 
     if name == "Pendulum":
         act = rng.uniform(-3.0, 3.0, (K, B))
+    elif name in GRID:
+        act = rng.integers(0, 25 if name == "LightsOut" else 4, (K, B))
+        act[0] = grid[1]       # the first step steers toward trouble
     else:
         act = rng.integers(0, 2 if name == "CartPole" else 3, (K, B))
     fresh = states((K,))
@@ -127,6 +149,8 @@ def test_megastep_ref_matches_jax_ref(name, time_limit):
     if name == "Breakout":
         assert (got[3] >= 1).any() and (got[3] >= 5).any(), (
             "bricks must break and a board must clear")
+    if name == "Snake":
+        assert (got[3] == 1).any(), "a snake must eat, so food is placed"
 
 
 @pytest.mark.parametrize("name,time_limit", CASES)

@@ -11,9 +11,9 @@
   - `rollout(render=True)` against the JAX pool's last frame.
 
 The JAX side builds and runs inside `jax.threefry_partitionable(False)`,
-the layout the goldens were made with. The port's `Vec.step` derives no
-per-lane keys (the JAX one splits keys no classic dynamics read): equal
-trajectories here are what shows that nothing depends on them.
+the layout the goldens were made with. The per-step keys reach the envs
+as in the JAX pool; Multitask, whose dynamics read them, is held to the JAX
+pool in tests/test_torch_grid.py.
 """
 import json
 import pathlib
