@@ -8,8 +8,28 @@ toolkit. It exits non-zero, printing no result, when there is no card or no
 repository around it. Phases, each printing one JSON line with its seconds:
 
   device   the card (and nvidia-smi's name and power limit line)
-  build    nvcc builds of csrc/megastep.cu and csrc/raster.cu, in parallel,
-           with ptxas's register and spill report per kernel instantiation
+  build    nvcc builds of csrc/megastep.cu, csrc/raster.cu and
+           csrc/flash.cu, in parallel, with ptxas's register and spill
+           report per kernel instantiation
+  attention  the CUDA flash attention against its plain version
+           (attention_ref) on the card, in bf16 and f32, at Yi-6B's heads
+           (32/4, D 128) and h2o-danube-1.8b's (32/8, D 80): a 2,048-token
+           prompt over a 4,096-slot cache, a ragged 37-token prompt, a
+           decode row at position 3,000, Danube's 4,096 window over 4,608
+           tokens, non-causal 1,024², and B = 2; max error, the share of
+           outputs whose bits differ, and at the main path's shape kernel,
+           plain and SDPA times and the bound
+  lm       the LM serving path: Yi-6B at full width and depth (random
+           params from a seed) through ServeEngine(slots=8, max_seq=4096),
+           16 requests of 128 to 2,048 prompt tokens and 64 greedy new
+           tokens each, with the launch counts set to 0 just before and
+           read just after (one flash launch per layer per prefill: 512);
+           tokens/s, time to first token and stats(); prefill + decode
+           against forward through the kernel; the kernel on the real q, k
+           and v of layers 0 and 31 of a 2,048-token prefill. Then
+           h2o-danube-1.8b at full width, 4 layers: a 4,608-token prefill
+           through the ring path, the kernel on its layers' q, k and v, and
+           16 per-slot decode steps (no kernel launch)
   kernel   the CUDA megastep against its plain PyTorch version on the card:
            the four classic bodies at K = 32, Pong and Breakout at K = 8 and
            the five grid and puzzle bodies (LightsOut, FrozenLake,
@@ -50,6 +70,10 @@ repository around it. Phases, each printing one JSON line with its seconds:
   grid_split  each grid and puzzle body on a real main-path chunk: the
            megastep against its plain version bit for bit, both timed, and
            the bound; for Maze-v0 and Snake-v0 the chunk's split
+  lm_profile  a torch.profiler window over Yi-6B's decode ticks and one
+           2,048-token prefill: wall and device-busy ms, idle share, the
+           costliest kernels (last, since a profiler slows the launches
+           that follow it)
 then the kernels line, and last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -67,6 +91,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+#: the CUDA sources, built in parallel (one nvcc each)
+SOURCES = ("megastep", "raster", "flash")
 IDS = ("CartPole-v1", "MountainCar-v0", "Pendulum-v1", "Acrobot-v1")
 PIXEL_IDS = ("Pong-v0", "Breakout-v0")
 #: the grid and puzzle bodies of the megastep, and their fused ids
@@ -97,10 +123,12 @@ RTOL, ATOL = 1e-5, 1e-6           # tests/conftest.py::assert_leaves_match
 GOLDEN_TOL = 1e-4                 # tests/test_golden.py
 TIMED_RUNS = 3
 
-#: (name fragment, memory bytes/s, fp32 non-tensor FLOP/s), NVIDIA data
-#: sheets; the first fragment found in the card's name applies
-CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100", 3.35e12, 67e12), ("H200", 4.8e12, 67e12))
+#: (name fragment, memory bytes/s, fp32 non-tensor FLOP/s, dense bf16
+#: tensor-core FLOP/s), NVIDIA data sheets; the first fragment found in the
+#: card's name applies
+CARDS = (("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H100", 3.35e12, 67e12, 989e12), ("H200", 4.8e12, 67e12, 989e12))
 
 #: float ops per lane-step of the CartPole body with TimeLimit, counted in
 #: csrc/megastep.cu: each add, multiply, divide, compare, select, fabsf,
@@ -142,10 +170,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_rates(name: str):
-    for fragment, bw, flops in CARDS:
-        if fragment in name:
-            return bw, flops
+def card_row(name: str):
+    """(memory bytes/s, fp32 non-tensor FLOP/s, dense bf16 tensor-core
+    FLOP/s) of the named card."""
+    for row in CARDS:
+        if row[0] in name:
+            return row[1:]
     raise RuntimeError(f"no data-sheet rates for {name!r}")
 
 
@@ -212,20 +242,22 @@ def event_ms(torch, fn, n, warmup=2):
 
 
 def counters():
+    """{kernel: its wrapper}; each wrapper counts its launches."""
+    from repro_torch.kernels.attention import flash_attention_cuda
     from repro_torch.kernels.envstep import megastep_cuda
     from repro_torch.kernels.raster import rasterize_cuda
 
-    return megastep_cuda, rasterize_cuda
+    return {"megastep": megastep_cuda, "raster": rasterize_cuda,
+            "flash": flash_attention_cuda}
 
 
 def reset_counts():
-    for fn in counters():
+    for fn in counters().values():
         fn.launches = 0
 
 
 def read_counts():
-    return {"megastep": counters()[0].launches,
-            "raster": counters()[1].launches}
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 @contextlib.contextmanager
@@ -236,9 +268,8 @@ def uncounted():
     try:
         yield
     finally:
-        megastep, raster = counters()
-        megastep.launches = saved["megastep"]
-        raster.launches = saved["raster"]
+        for name, fn in counters().items():
+            fn.launches = saved[name]
 
 
 # -- phases --------------------------------------------------------------------
@@ -261,10 +292,16 @@ _BODY = re.compile(r"(CartPole|MountainCar|Pendulum|Acrobot|Pong|Breakout|"
                    r"LightsOut|FrozenLake|CliffWalk|Maze|Snake)ELb([01])")
 
 
+_FLASH = re.compile(r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+
+
 def _entry_name(mangled: str) -> str:
     m = _BODY.search(mangled)
     if m:
         return m[1] + (" +TimeLimit" if m[2] == "1" else "")
+    m = _FLASH.search(mangled)
+    if m:
+        return f"flash {'float32' if m[1] == 'f' else 'bfloat16'} D={m[2]}"
     return "raster_kernel" if "raster_kernel" in mangled else mangled
 
 
@@ -289,9 +326,9 @@ def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    logs = build.build(["megastep", "raster"])
-    build.load("megastep")
-    build.load("raster")
+    logs = build.build(SOURCES)
+    for name in SOURCES:
+        build.load(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs), "ptxas": ptxas_report(logs)})
 
@@ -675,6 +712,7 @@ def drive(torch, sync, env_id, b, unroll, steps, key, device, want,
     sync()
     seconds = time.perf_counter() - t0
     launches = {n: read_counts()[n] - before[n] for n in before}
+    want = {"flash": 0, **want}
     if launches != want:
         raise AssertionError(f"{env_id}: launches {launches} in a {steps}-step"
                              f" rollout (render={render}), want {want}")
@@ -1149,6 +1187,515 @@ def phase_grid_split(torch, device, pools, sync, numbers, bw, flops):
     return bodies, worst
 
 
+# -- the LM serving path (flash attention) --------------------------------------
+
+#: head layouts of the two LM configs the port serves: (query heads, KV
+#: heads, head dim)
+YI_HEADS, DANUBE_HEADS = (32, 4, 128), (32, 8, 80)
+#: the JAX package's attention tolerances (tests/test_kernels.py):
+#: test_flash_attention_sweep (f32) and test_flash_attention_bf16
+ATTN_TOL = {"float32": 3e-5, "bfloat16": 5e-2}
+#: bf16 limits inside that tolerance. The kernel and attention_ref both
+#: compute in f32 and round once to bf16, so their f32 values differ far
+#: below a bf16 ulp and the rounded outputs by at most one ulp of the larger:
+#: every error within BF16_ULPS ulps of max(|got|, |want|) plus
+#: BF16_FLOOR of the largest |want| (for outputs near 0, where the f32
+#: sums' own rounding exceeds the ulp), and bits differing in at most
+#: BF16_BITS_SHARE of the outputs. A fault of the bf16 load, conversion or
+#: store, or a dropped K tile, moves most outputs of a row by many ulps.
+BF16_ULPS, BF16_FLOOR, BF16_BITS_SHARE = 2, 1e-4, 0.01
+#: (case, heads, B, Lq, Lk, causal, window, q_offset); each runs in bf16
+#: and f32. The first is the main path's shape: a 2,048-token prompt
+#: prefilled against Yi-6B's 4,096-slot cache
+ATTN_CASES = (
+    ("causal over a full cache", YI_HEADS, 1, 2048, 4096, True, 0, 0),
+    ("causal over a full cache", DANUBE_HEADS, 1, 2048, 4096, True, 0, 0),
+    ("ragged prompt", YI_HEADS, 1, 37, 4096, True, 0, 0),
+    ("ragged prompt", DANUBE_HEADS, 1, 37, 4096, True, 0, 0),
+    ("decode", YI_HEADS, 1, 1, 4096, True, 0, 3000),
+    ("decode", DANUBE_HEADS, 1, 1, 4096, True, 0, 3000),
+    ("window", DANUBE_HEADS, 1, 4608, 4608, True, 4096, 0),
+    ("non-causal", YI_HEADS, 1, 1024, 1024, False, 0, 0),
+    ("non-causal", DANUBE_HEADS, 1, 1024, 1024, False, 0, 0),
+    ("B = 2, offset prompt", YI_HEADS, 2, 333, 4096, True, 0, 100),
+)
+#: the serving run: Yi-6B at full width and depth through ServeEngine
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 64
+PROMPT_LENS = (128, 2048)
+LM_SEED = 0
+#: prompt lengths of the decode-matches-forward invariant and of the
+#: prefill whose layers 0 and 31 feed the kernel check
+INVARIANT_L, REAL_PROMPT = 1000, 2048
+#: tolerances of the decode-matches-forward invariant on Yi-6B's logits.
+#: In f32 (params upcast from the engine's bf16 copy) the JAX package's own,
+#: elementwise (tests/test_models.py::test_decode_matches_forward). In bf16
+#: the two paths round differently wherever cuBLAS orders the sums of an
+#: L-row and an (L+1)-row product differently, and 32 layers carry those
+#: roundings to every logit as noise: the bf16 bound is on the error of the
+#: logit vector as a whole, ||decode - forward|| <= 5e-2 ||forward|| (the
+#: JAX package's bf16 attention tolerance, tests/test_kernels.py), and the
+#: same against the decode logits through the plain attention
+F32_LOGIT_TOL, BF16_LOGIT_REL = 2e-3, 5e-2
+#: h2o-danube-1.8b at full width, cut to 4 of its 24 layers: one prompt
+#: past its 4,096-token window, then per-slot decode steps
+DANUBE_LAYERS, DANUBE_PROMPT, DANUBE_DECODES = 4, 4608, 16
+#: decode ticks in the profiled window
+PROFILE_TICKS = 5
+
+
+def attention_work(b, heads, lq, lk, causal, window, q_offset, itemsize):
+    """(live query-key pairs, bytes, flops) of one attention call: each
+    row's visible keys counted, Q and O and the live K and V moved once,
+    4·D flops a live pair (q·k and p·v)."""
+    import numpy as np
+
+    hq, hkv, d = heads
+    qpos = q_offset + np.arange(lq, dtype=np.int64)
+    hi = np.minimum(lk, qpos + 1) if causal else np.full(lq, lk)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(lq, np.int64)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    live_keys = max(0, int(hi.max()) - int(lo.min()))
+    moved = itemsize * d * b * (2 * hq * lq + 2 * hkv * live_keys)
+    return pairs * b * hq, moved, 4 * d * pairs * b * hq
+
+
+def attention_inputs(torch, heads, b, lq, lk, dtype, seed, device):
+    hq, hkv, d = heads
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda h, l: torch.randn((b, h, l, d), generator=g, device=device).to(dtype)
+    return mk(hq, lq), mk(hkv, lk), mk(hkv, lk)
+
+
+def attention_check(torch, q, k, v, what, **kw):
+    """The kernel against the plain version on one input: max abs error,
+    the share of outputs whose bits differ and, in bf16, the worst error
+    over its BF16_ULPS limit. Raises past the JAX package's tolerance for
+    the dtype and, in bf16, past either of BF16_BITS_SHARE and the ulp
+    limit."""
+    from repro_torch.kernels.attention import attention_ref, flash_attention_cuda
+
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[str(q.dtype).split(".")[-1]]
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"flash {what}: {got.shape} {got.dtype}, want "
+                             f"{want.shape} {want.dtype}")
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"flash {what}: {m}")
+    bits = torch.int16 if q.dtype == torch.bfloat16 else torch.int32
+    out = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+           "bits_differ": float((got.view(bits) != want.view(bits)).float().mean())}
+    if q.dtype == torch.bfloat16:
+        g, w = got.float(), want.float()
+        # a bf16 value in [2^(e-1), 2^e) has an ulp of 2^(e-8)
+        mag = torch.maximum(g.abs(), w.abs())
+        ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+        limit = BF16_ULPS * ulp + BF16_FLOOR * float(w.abs().max())
+        out["err_over_ulp_limit"] = float(((g - w).abs() / limit).max())
+        if out["bits_differ"] > BF16_BITS_SHARE or out["err_over_ulp_limit"] > 1:
+            raise AssertionError(
+                f"flash {what}: {out}; bf16 limits: bits differ in at most "
+                f"{BF16_BITS_SHARE} of outputs, errors within {BF16_ULPS} "
+                f"ulps + {BF16_FLOOR} max|want|")
+    return out
+
+
+def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
+    """The CUDA flash attention against attention_ref at the LM path's
+    shapes; kernel, plain and SDPA times and the bound at the main path's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import attention_ref, flash_attention_cuda
+
+    t0 = time.perf_counter()
+    cases, worst, main = [], 0.0, None
+    with uncounted():
+        for i, (what, heads, b, lq, lk, causal, window, q_offset) in enumerate(
+                ATTN_CASES):
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).split(".")[-1]
+                q, k, v = attention_inputs(torch, heads, b, lq, lk, dtype, i,
+                                           device)
+                kw = dict(causal=causal, window=window, q_offset=q_offset)
+                checked = attention_check(torch, q, k, v, what, **kw)
+                worst = max(worst, checked["max_abs_err"])
+                case = {"case": what, "dtype": name, "heads": heads, "B": b,
+                        "Lq": lq, "Lk": lk, "causal": causal,
+                        "window": window, "q_offset": q_offset,
+                        "tol": ATTN_TOL[name], **checked}
+                if i == 0 or (what == "window" and dtype == torch.bfloat16):
+                    pairs, moved, ops = attention_work(
+                        b, heads, lq, lk, causal, window, q_offset,
+                        q.element_size())
+                    rate = bf16_flops if dtype == torch.bfloat16 else fp32_flops
+                    bound_ms, bound_by = bound(moved, ops, bw, rate)
+                    case.update(
+                        live_pairs=pairs, bytes=moved, flops=ops,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        ms=event_ms(torch, lambda: flash_attention_cuda(
+                            q, k, v, **kw), 20),
+                        plain_ms=event_ms(torch, lambda: attention_ref(
+                            q, k, v, **kw), 3, warmup=1))
+                    if causal and q_offset == 0 and not window:
+                        # is_causal is top-left aligned: key j <= row i, the
+                        # same mask as q_offset 0
+                        sdpa = lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, enable_gqa=True)
+                        case["library"] = ("torch.nn.functional."
+                                           "scaled_dot_product_attention")
+                        case["library_ms"] = event_ms(torch, sdpa, 20)
+                        case["library_max_abs_err"] = float(
+                            (sdpa().float() - attention_ref(q, k, v, **kw)
+                             .float()).abs().max())
+                    if i == 0 and dtype == torch.bfloat16:
+                        main = case
+                cases.append(case)
+                del q, k, v
+    torch.cuda.empty_cache()
+    emit({"phase": "attention", "seconds": time.perf_counter() - t0,
+          "cases": cases, "clock": "CUDA events: kernel and SDPA over 20 "
+          "launches, plain over 3", "rates": {"bytes_per_s": bw,
+                                              "bf16_flops": bf16_flops,
+                                              "fp32_flops": fp32_flops}})
+    return worst, main
+
+
+@contextlib.contextmanager
+def captured_attention(layers, backend="auto"):
+    """Record the (q, k, v, kwargs) of the LM's attention calls numbered in
+    `layers` (0 = the first call), and route every call to `backend`."""
+    import torch
+
+    from repro_torch.kernels.attention import ops
+
+    original, seen = ops.attention, {}
+    calls = [0]
+
+    def spy(q, k, v, **kw):
+        if calls[0] in layers:
+            seen[calls[0]] = tuple(x.clone(memory_format=torch.contiguous_format)
+                                   for x in (q, k, v)) + (dict(kw),)
+        calls[0] += 1
+        return original(q, k, v, **{**kw, "backend": backend})
+
+    ops.attention = spy
+    try:
+        yield seen
+    finally:
+        ops.attention = original
+
+
+def profile_window(torch, fn, n):
+    """torch.profiler over n calls of fn (after one warm call): wall ms a
+    call, device-busy ms a call (the sum of the kernels' device time), the
+    idle share, and the five costliest kernels. Device fields are None
+    when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / n
+    # kernel rows only: an op's row repeats its kernels' device time
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in kernels]
+    busy = sum(ms for _, ms in rows)
+    top = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:5]
+    return {"calls": n, "wall_ms": wall,
+            "kernel_launches": sum(e.count for e in kernels) / n,
+            "device_busy_ms": busy if busy > 0 else None,
+            "idle_share": 1 - busy / wall if busy > 0 else None,
+            "top_kernels_ms": top,
+            "clock": "host clock around the window (profiler on); device "
+                     "time from the trace"}
+
+
+def decode_vs_forward(lm, cfg, params, toks, backend):
+    """(decode_step logits at L after prefill(L), forward(L + 1)'s last
+    logits), every attention routed to `backend`."""
+    l = toks.shape[1] - 1
+    with captured_attention(set(), backend):
+        hidden, _ = lm.forward(cfg, params, {"tokens": toks})
+        ref = lm.logits_for(cfg, params, hidden[:, -1:])[:, 0]
+        _, caches = lm.prefill(cfg, params, {"tokens": toks[:, :l]},
+                               SERVE_MAX_SEQ)
+        got, _ = lm.decode_step(cfg, params, caches, toks[:, l:], l)
+    return got, ref
+
+
+def logit_errors(got, ref):
+    d = (got - ref).float()
+    return {"max_abs": float(d.abs().max()),
+            "rel_l2": float(d.norm() / ref.float().norm())}
+
+
+def lm_prompts(vocab):
+    import numpy as np
+
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, SERVE_REQUESTS)
+    return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def serve_requests(torch, engine, prompts):
+    """The main path: every prompt through engine.step() until all are
+    served. Returns (requests, seconds, first-token seconds per request,
+    per-tick (seconds, admitted))."""
+    from repro_torch.serving.engine import Request
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    table = engine.slots_table
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    first, ticks, last = {}, [], t0
+    while table.queued_count or table.active_count:
+        admitted = table.admitted
+        engine.step()          # ends in a host copy of the tokens: a sync
+        now = time.perf_counter()
+        ticks.append((now - last, table.admitted - admitted))
+        last = now
+        for r in reqs:
+            if r.output and r.rid not in first:
+                first[r.rid] = now - t0
+        if len(ticks) > SERVE_REQUESTS * (SERVE_NEW + 4):
+            raise AssertionError("the engine did not drain its queue")
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0, first, ticks
+
+
+def phase_lm(torch, device):
+    """Yi-6B at full width and depth through ServeEngine (the main path of
+    this slice), the decode-matches-forward invariant through the kernel,
+    the kernel on real layer inputs; then h2o-danube-1.8b at full width
+    through the ring path."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    out = {"phase": "lm"}
+    cfg = get_config("yi-6b")
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = lm.init_params(cfg, gen, device)
+    torch.cuda.synchronize()
+    out["yi_init_s"] = time.perf_counter() - t0
+    out["yi_params"] = sum(x.numel() for x in lm.tree_leaves(params))
+    engine = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                         device=device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    eparams = engine.params
+    out["engine_params_dtype"] = str(eparams["lm_head"].dtype)
+    prompts = lm_prompts(cfg.vocab_size)
+
+    with uncounted():  # warm cuBLAS and the kernel's library
+        warm = torch.from_numpy(prompts[0][:PROMPT_LENS[0]])[None].to(device)
+        logits, caches = lm.prefill(cfg, eparams, {"tokens": warm},
+                                    SERVE_MAX_SEQ)
+        lm.decode_step(cfg, eparams, caches, logits.argmax(-1).to(torch.int32),
+                       torch.tensor([warm.shape[1]], device=device))
+        del caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    reqs, seconds, first, ticks = serve_requests(torch, engine, prompts)
+    launches = read_counts()
+    want = {"megastep": 0, "raster": 0,
+            "flash": SERVE_REQUESTS * cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"yi-6b serving: launches {launches}, want {want}")
+    for r in reqs:
+        if len(r.output) != SERVE_NEW or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.rid}: {len(r.output)} tokens, "
+                                 f"want {SERVE_NEW} in [0, {cfg.vocab_size})")
+    ttft = sorted(first.values())
+    decode_ticks = [s for s, n in ticks if n == 0]
+    generated = sum(len(r.output) for r in reqs)
+    out["serve"] = {
+        "arch": cfg.name, "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
+        "requests": SERVE_REQUESTS, "max_new_tokens": SERVE_NEW,
+        "prompt_tokens": int(sum(len(p) for p in prompts)),
+        "prompt_lens": [len(p) for p in prompts],
+        "seconds": seconds, "generated_tokens": generated,
+        "tokens_per_s": generated / seconds,
+        "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
+        "ticks": len(ticks), "decode_tick_ms_median":
+            1e3 * statistics.median(decode_ticks) if decode_ticks else None,
+        "admit_ticks_s": sum(s for s, n in ticks if n),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "stats": engine.stats(),
+        "clock": "host clock; each tick ends in the tokens' host copy, so "
+                 "a first token is stamped at the end of its tick"}
+    del engine.state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    errs = []
+    with uncounted():
+        # tests/test_models.py::test_decode_matches_forward, through the
+        # kernel: prefill(L) + decode_step(L) against forward(L + 1), in
+        # bf16 through the kernel and the plain attention, and in f32
+        toks = torch.from_numpy(np.resize(prompts[1], INVARIANT_L + 1)).to(
+            device)[None].long()
+        runs = {"bfloat16 kernel": (cfg, eparams, "auto"),
+                "bfloat16 plain": (cfg, eparams, "torch")}
+        logits = {}
+        for what, (c, p, backend) in runs.items():
+            logits[what] = decode_vs_forward(lm, c, p, toks, backend)
+        p32 = lm.tree_map(lambda x: x.float(), eparams)
+        logits["float32 kernel"] = decode_vs_forward(
+            lm, dataclasses.replace(cfg, dtype="float32"), p32, toks, "auto")
+        del p32
+        inv = {what: logit_errors(*pair) for what, pair in logits.items()}
+        inv["bfloat16 kernel against plain, decode"] = logit_errors(
+            logits["bfloat16 kernel"][0], logits["bfloat16 plain"][0])
+        out["decode_matches_forward"] = {
+            "L": INVARIANT_L, "f32_tol": F32_LOGIT_TOL,
+            "bf16_rel_l2_tol": BF16_LOGIT_REL,
+            "max_abs_logit": float(logits["bfloat16 kernel"][1].abs().max()),
+            **inv}
+        emit({"check": "decode_matches_forward",
+              **out["decode_matches_forward"]})
+        got, ref = logits["float32 kernel"]
+        torch.testing.assert_close(
+            got, ref, rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL,
+            msg=lambda m: f"yi-6b f32 decode != forward: {m}")
+        for what in ("bfloat16 kernel", "bfloat16 kernel against plain, decode"):
+            if not inv[what]["rel_l2"] <= BF16_LOGIT_REL:
+                raise AssertionError(f"yi-6b decode != forward ({what}): "
+                                     f"{inv[what]}")
+        del logits
+
+        # the kernel on the real q, k and v of layers 0 and 31 of one
+        # 2,048-token prefill
+        toks = torch.from_numpy(np.resize(prompts[2], REAL_PROMPT)).to(device)[None]
+        with captured_attention({0, cfg.num_layers - 1}) as seen:
+            lm.prefill(cfg, eparams, {"tokens": toks}, SERVE_MAX_SEQ)
+        real = {}
+        for layer, (q, k, v, kw) in sorted(seen.items()):
+            checked = attention_check(torch, q, k, v,
+                                      f"yi-6b layer {layer}", **kw)
+            real[f"yi-6b layer {layer}"] = {
+                "q": list(q.shape), "k": list(k.shape), **kw, **checked}
+            errs.append(checked["max_abs_err"])
+        del seen, eparams, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # h2o-danube-1.8b at full width, 4 layers: a 4,608-token prompt through
+    # the ring (SWA) prefill, then per-slot decode steps on the ring
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"),
+                              segments=((("swa",), DANUBE_LAYERS),))
+    params = lm.compute_params(cfg, lm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(LM_SEED), device))
+    rng = np.random.default_rng(LM_SEED + 1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, DANUBE_PROMPT))).to(device)
+    reset_counts()
+    with captured_attention({0, DANUBE_LAYERS - 1}) as seen:
+        logits, caches = lm.prefill(cfg, params, {"tokens": toks},
+                                    2 * DANUBE_PROMPT)
+    prefill_launches = read_counts()
+    want = {"megastep": 0, "raster": 0, "flash": DANUBE_LAYERS}
+    if prefill_launches != want:
+        raise AssertionError(f"danube ring prefill: launches "
+                             f"{prefill_launches}, want {want}")
+    if caches[0]["b0"].k.shape[3] != cfg.window:
+        raise AssertionError(f"danube cache {tuple(caches[0]['b0'].k.shape)}"
+                             f" is not a {cfg.window}-slot ring")
+    with uncounted():
+        for layer, (q, k, v, kw) in sorted(seen.items()):
+            checked = attention_check(torch, q, k, v,
+                                      f"danube layer {layer}", **kw)
+            real[f"h2o-danube-1.8b layer {layer}"] = {
+                "q": list(q.shape), "k": list(k.shape), **kw, **checked}
+            errs.append(checked["max_abs_err"])
+        del seen
+    reset_counts()
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    pos = torch.tensor([DANUBE_PROMPT], dtype=torch.int32, device=device)
+    scalar_err = None
+    for step in range(DANUBE_DECODES):
+        lg, caches = lm.decode_step(cfg, params, caches, tok, pos)
+        if step == 0:
+            # the scalar-position ring decode writes the same slot with the
+            # same k and v, and must give the same logits
+            with uncounted():
+                lg_scalar, _ = lm.decode_step(cfg, params, caches, tok,
+                                              DANUBE_PROMPT)
+            scalar_err = float((lg - lg_scalar).abs().max())
+            torch.testing.assert_close(lg, lg_scalar, rtol=0, atol=0)
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"danube decode step {step}: non-finite logits")
+        tok, pos = lg.argmax(-1).to(torch.int32)[:, None], pos + 1
+    if read_counts() != {"megastep": 0, "raster": 0, "flash": 0}:
+        raise AssertionError(f"danube per-slot decode launched {read_counts()}")
+    torch.cuda.synchronize()
+    out["danube"] = {"layers": DANUBE_LAYERS, "prompt": DANUBE_PROMPT,
+                     "window": cfg.window, "prefill_launches": prefill_launches,
+                     "decode_steps": DANUBE_DECODES,
+                     "scalar_vs_per_slot_max_abs_err": scalar_err,
+                     "seconds": time.perf_counter() - t1}
+    out["real_layer_checks"] = real
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return max(errs), out
+
+
+def phase_lm_profile(torch, device):
+    """Where the serving run's time goes, on a fresh Yi-6B engine: a
+    profiler window over decode ticks (every slot decodes whether active or
+    not, so the zeroed caches cost what full ones do) and over one
+    2,048-token prefill. Last of the phases: a profiler leaves the CUDA
+    launches of the process slower after it stops."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = get_config("yi-6b")
+    engine = ServeEngine(cfg, lm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(LM_SEED), device),
+        slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device)
+    gc.collect()
+    toks = torch.from_numpy(np.resize(lm_prompts(cfg.vocab_size)[2],
+                                      REAL_PROMPT)).to(device)[None]
+    with uncounted():
+        out = {"decode_tick": profile_window(torch, lambda: engine._decode(
+                   engine.params, engine.state), PROFILE_TICKS),
+               "prefill_2048": profile_window(torch, lambda: lm.prefill(
+                   cfg, engine.params, {"tokens": toks}, SERVE_MAX_SEQ), 1)}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_profile", "seconds": time.perf_counter() - t0, **out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1164,8 +1711,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     name, smi = phase_device(torch)
-    bw, flops = card_rates(name)
+    bw, flops, bf16_flops = card_row(name)
     phase_build()
+    flash_err, flash = phase_attention(torch, device, bw, flops, bf16_flops)
+    lm_err, lm_out = phase_lm(torch, device)
+    flash_err = max(flash_err, lm_err)
     mega_err = phase_kernel(torch, device)
     raster_err, grid_raster = phase_raster(torch, device, bw, flops)
     pools, vmap_pools, render_pools, launches = phase_main(torch, device, sync)
@@ -1188,6 +1738,8 @@ def main() -> int:
                                           sync, numbers, bw, flops)
         mega_err = max(mega_err, pixel[env_id]["megastep_err"])
         raster_err = max(raster_err, pixel[env_id]["raster_err"])
+    del pools
+    phase_lm_profile(torch, device)
 
     sp = spec.state_size + 1
     bytes_moved = megastep_bytes(B_MAIN, K, sp, spec.obs_size)
@@ -1232,6 +1784,23 @@ def main() -> int:
                   "bytes": pong["raster"]["bytes"],
                   "ops": pong["raster"]["ops"]},
         "maze_scenes": {"frames": GRID_FRAMES, "S": 64, **grid_raster},
+        "card": smi,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash.cu",
+        "replaces": "src/repro/kernels/attention/flash.py:84",
+        "launches": lm_out["serve"]["launches"]["flash"],
+        "max_abs_err": flash_err,
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
+        "library": flash["library"],
+        "shape": {k: flash[k] for k in ("case", "dtype", "heads", "B", "Lq",
+                                        "Lk", "causal", "live_pairs", "bytes",
+                                        "flops")},
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

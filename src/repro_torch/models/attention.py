@@ -1,0 +1,178 @@
+"""GQA attention blocks (full / sliding-window) with KV caches (port of
+`repro.models.attention`; MLA and cross attention wait, ROADMAP A13).
+
+Attention with no cache, prefill and scalar-position decode go through
+`kernels.attention.ops.attention` (the JAX package's `_attend_chunked`): the
+hand-written CUDA kernel (csrc/flash.cu) for CUDA tensors, the plain
+`attention_ref` for CPU tensors. This is where the JAX package says the
+Pallas kernel replaces its query-chunked jnp path. The per-slot decode
+that `ServeEngine` runs every tick, and the ring (SWA) decode, stay plain
+PyTorch einsums and softmax, as the JAX package computes them outside any
+kernel: the engine's steady-state decode launches no attention kernel.
+
+Cache layout (decode): k/v (B, Hkv, S_max, hd) written at `pos`;
+sliding-window blocks keep S_max = window and write at `pos % window`
+(ring), so danube caches are O(window). Unlike the JAX package's
+functional updates, the cache tensors are written IN PLACE and returned:
+`gqa_apply` mutates the `KVCache` it is given. The JAX package's
+`shard_hint` layout pins have no meaning on one card and are dropped.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.attention import ops
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+
+_NEG = -1e30
+
+
+# -- parameter init -----------------------------------------------------------
+def gqa_init(gen: torch.Generator, cfg, dtype, lead=()):
+    """wq, wk, wv, wo (and qk-norm scales); `lead` stacks them over layers."""
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    lead = tuple(lead)
+    p = {
+        "wq": dense_init(gen, lead + (d, hq * hd), dtype, fan_in=d),
+        "wk": dense_init(gen, lead + (d, hkv * hd), dtype, fan_in=d),
+        "wv": dense_init(gen, lead + (d, hkv * hd), dtype, fan_in=d),
+        "wo": dense_init(gen, lead + (hq * hd, d), dtype, fan_in=hq * hd),
+    }
+    if cfg.qk_norm:
+        p["q_scale"] = torch.zeros(lead + (hd,), dtype=dtype, device=gen.device)
+        p["k_scale"] = torch.zeros(lead + (hd,), dtype=dtype, device=gen.device)
+    return p
+
+
+# -- exact attention core -----------------------------------------------------
+#: The JAX package's query-chunked attention computes `attention_ref`'s
+#: function; here it is `ops.attention` itself (the kernel tiles the
+#: queries, the plain version materialises the scores at once).
+_attend_chunked = ops.attention
+
+
+# -- GQA block ----------------------------------------------------------------
+class KVCache(NamedTuple):
+    k: torch.Tensor    # (B, Hkv, S, hd)
+    v: torch.Tensor    # (B, Hkv, S, hd)
+
+
+def gqa_cache_init(cfg, batch: int, max_seq: int, window: int, dtype,
+                   device=None, lead=()) -> KVCache:
+    """Zeroed caches; `lead` stacks them over layers."""
+    s = min(window, max_seq) if window > 0 else max_seq
+    shape = tuple(lead) + (batch, cfg.num_kv_heads, s, cfg.hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _slot_attention(q, ck, cv, valid, hkv):
+    """One-token attention over every cache slot under a (.., S) `valid`
+    mask that broadcasts to (B, Hq, L, S): the JAX package's einsum and
+    softmax, in f32."""
+    b, hq, l, hd = q.shape
+    s_max = ck.shape[2]
+    s = torch.matmul(q.reshape(b, hkv, hq // hkv * l, hd).float(),
+                     ck.float().transpose(-1, -2)) * (hd ** -0.5)
+    s = s.reshape(b, hq, l, s_max).masked_fill(~valid, _NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.reshape(b, hkv, -1, s_max),
+                        cv.float()).reshape(b, hq, l, hd).to(q.dtype)
+
+
+def gqa_apply(
+    params,
+    cfg,
+    x: torch.Tensor,                  # (B, L, d)
+    *,
+    window: int = 0,
+    positions: Optional[torch.Tensor] = None,    # (L,)
+    cache: Optional[KVCache] = None,
+    cache_pos=None,                   # absolute position of x[0]: an int or
+                                      # 0-d tensor, or (B,) per slot
+    causal: bool = True,
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    b, l, d = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt = x.dtype
+    positions = positions if positions is not None else torch.arange(l, device=x.device)
+    per_slot = (cache is not None and isinstance(cache_pos, torch.Tensor)
+                and cache_pos.dim() == 1)
+
+    q = (x @ params["wq"].to(dt)).reshape(b, l, hq, hd)
+    k = (x @ params["wk"].to(dt)).reshape(b, l, hkv, hd)
+    v = (x @ params["wv"].to(dt)).reshape(b, l, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_scale"], cfg.norm_eps)
+        k = rms_norm(k, params["k_scale"], cfg.norm_eps)
+    rope_pos = cache_pos[:, None, None] if per_slot else positions  # (B,1,1) or (L,)
+    q = apply_rope(q.transpose(1, 2), rope_pos, cfg.rope_theta)    # (B, Hq, L, hd)
+    k = apply_rope(k.transpose(1, 2), rope_pos, cfg.rope_theta)    # (B, Hkv, L, hd)
+    v = v.transpose(1, 2)
+
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache.k, cache.v
+        s_max = ck.shape[2]
+        ring = window > 0 and s_max == window
+        if per_slot:
+            # one-token decode with heterogeneous per-slot positions
+            slot = (cache_pos % s_max) if ring else cache_pos
+            bi = torch.arange(b, device=x.device)
+            ck[bi, :, slot] = k[:, :, 0].to(ck.dtype)
+            cv[bi, :, slot] = v[:, :, 0].to(cv.dtype)
+        elif ring:
+            # Ring cache: keep only the last `window` positions.
+            take = min(l, s_max)
+            slots = (cache_pos + l - take + torch.arange(take, device=x.device)) % s_max
+            ck[:, :, slots] = k[:, :, l - take:].to(ck.dtype)
+            cv[:, :, slots] = v[:, :, l - take:].to(cv.dtype)
+        else:
+            # dynamic_update_slice semantics: the start clamps so that the
+            # L new positions fit
+            start = min(max(int(cache_pos), 0), s_max - l)
+            ck[:, :, start:start + l] = k.to(ck.dtype)
+            cv[:, :, start:start + l] = v.to(cv.dtype)
+        new_cache = KVCache(ck, cv)
+        if per_slot:
+            # attend over slots valid for each batch row
+            kpos_ring = torch.arange(s_max, device=x.device)
+            if ring:
+                base = (cache_pos // s_max)[:, None] * s_max
+                abs_pos = kpos_ring[None, :] + base
+                abs_pos = torch.where(kpos_ring[None, :] > (cache_pos % s_max)[:, None],
+                                      abs_pos - s_max, abs_pos)
+                valid = (abs_pos <= cache_pos[:, None]) & \
+                        (abs_pos > (cache_pos - window)[:, None]) & (abs_pos >= 0)
+            else:
+                valid = kpos_ring[None, :] <= cache_pos[:, None]
+                if window > 0:
+                    valid &= kpos_ring[None, :] > (cache_pos - window)[:, None]
+            o = _slot_attention(q, ck, cv, valid[:, None, None, :], hkv)
+        elif ring and l > 1:
+            # SWA prefill (single-shot, cache_pos == 0): attend over the local
+            # window of the fresh k/v directly; the ring holds the tail.
+            o = ops.attention(q, k, v, causal=True, window=window)
+        elif ring:
+            # SWA decode: attend over ring slots with ring-aware positions.
+            kpos_ring = torch.arange(s_max, device=x.device)
+            slot = cache_pos % s_max
+            abs_pos = kpos_ring + (cache_pos // s_max) * s_max
+            abs_pos = torch.where(kpos_ring > slot, abs_pos - s_max, abs_pos)
+            valid = (abs_pos <= cache_pos) & (abs_pos > cache_pos - window) & (abs_pos >= 0)
+            o = _slot_attention(q, ck, cv, valid, hkv)
+        else:
+            # causal w.r.t. absolute positions: kpos <= qpos also masks the
+            # not-yet-written tail of the cache (all written slots < pos+l).
+            o = ops.attention(q, ck, cv, causal=True, window=window,
+                              q_offset=int(cache_pos))
+    else:
+        o = ops.attention(q, k, v, causal=causal, window=window)
+
+    out = o.transpose(1, 2).reshape(b, l, hq * hd) @ params["wo"].to(dt)
+    return out, new_cache
+
+
+__all__ = ["KVCache", "gqa_apply", "gqa_cache_init", "gqa_init"]

@@ -32,6 +32,7 @@ from repro_torch.core.env import Env, supports_fused_step
 from repro_torch.core.registry import make as registry_make
 from repro_torch.core.spaces import sample_batch
 from repro_torch.core.wrappers import AutoReset, Vec
+from repro_torch.device import resolve_device
 
 #: megastep backends: the CUDA kernel, or its plain PyTorch version
 FUSED_BACKENDS = ("cuda", "torch")
@@ -60,17 +61,6 @@ class XlaPool(NamedTuple):
     init: Callable[[torch.Tensor], PoolState]
     step: Callable[..., Tuple[PoolState, PoolStep]]
     step_many: Callable[..., Tuple[PoolState, PoolStep]]
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or the CUDA card when None; raises if CUDA is absent."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on the CUDA card by default and no CUDA "
-                "device is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
