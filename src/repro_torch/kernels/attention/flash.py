@@ -3,10 +3,11 @@
 The port of the Pallas TPU kernel
 `src/repro/kernels/attention/flash.py::flash_attention`, widened to the
 contract of `ref.attention_ref` (a `q_offset`, any Lq and Lk), which is what
-`models/attention.py::_attend_chunked` asks of it. The kernel itself is
-hand-written CUDA C++ for sm_90a in `csrc/flash.cu` (design and bound in
-its header); this module is its wrapper: it checks the operands, allocates
-the output, launches on PyTorch's current stream and counts the launches.
+`models/attention.py::_attend_chunked` asks of it. The kernels themselves
+are hand-written CUDA C++ for sm_90a in `csrc/flash.cu` (design and bound in
+its header): bfloat16 runs on the tensor cores, float32 on the CUDA cores.
+This module is their one wrapper: it checks the operands, allocates the
+output, launches on PyTorch's current stream and counts the launches.
 It takes only CUDA tensors and raises on anything else; the plain version
 for the CPU is `ref.attention_ref`, chosen by `ops.attention`.
 """
@@ -22,10 +23,9 @@ HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _library():
-    from repro_torch.kernels.build import load
-
-    fn = load("flash").flash_attention
+def _bind(lib: ctypes.CDLL):
+    """lib's C entry point `flash_attention`, typed."""
+    fn = lib.flash_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_float]
                        + [ctypes.c_void_p] * 5)
@@ -33,15 +33,21 @@ def _library():
     return fn
 
 
+def _library():
+    from repro_torch.kernels.build import load
+
+    return _bind(load("flash"))
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
                          q_offset: int = 0,
                          scale: float | None = None) -> torch.Tensor:
     """q (B, Hq, Lq, D), k and v (B, Hkv, Lk, D), contiguous float32 or
-    bfloat16 on one CUDA device, Hq a multiple of Hkv -> (B, Hq, Lq, D) in
-    q's dtype, as one CUDA launch. Query row i sits at absolute position
-    q_offset + i; key j is visible where j <= q_offset + i (causal) and
-    j > q_offset + i - window (window > 0)."""
+    bfloat16 on one CUDA device, 16-byte aligned, Hq a multiple of Hkv ->
+    (B, Hq, Lq, D) in q's dtype, as one CUDA launch. Query row i sits at
+    absolute position q_offset + i; key j is visible where j <= q_offset + i
+    (causal) and j > q_offset + i - window (window > 0)."""
     for what, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
             raise ValueError(f"flash_attention_cuda takes CUDA tensors; {what}"
@@ -70,6 +76,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{b}, {hq}, {lq}, {lk}, {q_offset}, {window}")
     scale = (d ** -0.5) if scale is None else scale
     out = torch.empty_like(q)
+    for what, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda takes 16-byte aligned "
+                             f"tensors; {what} is at {x.data_ptr():#x}")
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     rc = _library()(DTYPES[q.dtype], b, hq, hkv, lq, lk, d, int(bool(causal)),
                     int(window), int(q_offset), float(scale), ptr(q),

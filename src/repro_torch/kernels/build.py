@@ -45,6 +45,30 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def compile_all(jobs: Dict[Path, Path]) -> Dict[Path, str]:
+    """Compile every source of `jobs` {library: source} with nvcc, all at
+    once, each into a temporary file moved onto its library when nvcc
+    succeeds. Returns nvcc's output (ptxas register and spill report) per
+    library; a failed build raises."""
+    procs = {}
+    for out, src in jobs.items():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[out] = (tmp, src, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for out, (tmp, src, proc) in procs.items():
+        logs[out] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{src} (nvcc exit {proc.returncode}):\n{logs[out]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return logs
+
+
 def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile every named source whose library is missing, all at once.
 
@@ -52,25 +76,8 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     name; an empty dict when everything was already built.
     """
     todo = {n: library_path(n) for n in names if not library_path(n).exists()}
-    if not todo:
-        return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, out in todo.items():
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
-    for name, (tmp, out, proc) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{logs[name]}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    return logs
+    logs = compile_all({out: CSRC / f"{n}.cu" for n, out in todo.items()})
+    return {n: logs[out] for n, out in todo.items()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,5 +87,5 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "library_path", "load",
-           "nvcc"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "compile_all",
+           "library_path", "load", "nvcc"]

@@ -6,7 +6,7 @@ raster.py (the CUDA kernel's wrapper, sources in csrc/raster.cu), ref.py
 from repro_torch.kernels.raster.ops import (capsule_scene, rasterize,
                                            render_scene)
 from repro_torch.kernels.raster.raster import rasterize_cuda
-from repro_torch.kernels.raster.ref import rasterize_ref
+from repro_torch.kernels.raster.ref import rasterize_ref, tile_keep
 
 __all__ = ["capsule_scene", "rasterize", "rasterize_cuda", "rasterize_ref",
-           "render_scene"]
+           "render_scene", "tile_keep"]

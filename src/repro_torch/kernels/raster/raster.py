@@ -15,14 +15,19 @@ import ctypes
 import torch
 
 
-def _library():
-    from repro_torch.kernels.build import load
-
-    fn = load("raster").rasterize
+def _bind(lib: ctypes.CDLL):
+    """lib's C entry point `rasterize`, typed."""
+    fn = lib.rasterize
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
     return fn
+
+
+def _library():
+    from repro_torch.kernels.build import load
+
+    return _bind(load("raster"))
 
 
 def rasterize_cuda(segs: torch.Tensor, intens: torch.Tensor, h: int,
