@@ -31,12 +31,16 @@ repository around it. Phases, each printing one JSON line with its seconds:
            h2o-danube-1.8b at full width, 4 layers: a 4,608-token prefill
            through the ring path, the kernel on its layers' q, k and v, and
            16 per-slot decode steps (no kernel launch)
-  kernel   the CUDA megastep against its plain PyTorch version on the card:
-           the four classic bodies at K = 32, Pong and Breakout at K = 8 and
-           the five grid and puzzle bodies (LightsOut, FrozenLake,
-           CliffWalk, Maze, Snake) at K = 32 from states steered into their
-           terminal cases, bit for bit, each with and without a TimeLimit,
-           at B = 65,573 (a ragged last block)
+  kernel   the CUDA megastep, which splits each lane's key and runs the
+           env's reset in-kernel, against its plain twin on the card (the
+           key chain and resets of fresh_rows, then megastep_ref): the four
+           classic bodies at K = 32, Pong and Breakout at K = 8 and the five
+           grid and puzzle bodies (LightsOut, FrozenLake, CliffWalk, Maze,
+           Snake) at K = 32 from states steered into their terminal cases,
+           each with and without its TimeLimit, and every body reset-heavy
+           (a TimeLimit of 3, K = 32), at B = 65,573 (a ragged last block);
+           final keys, done and truncated exact, the grid bodies bit for
+           bit; the resets per body (none fails)
   raster   the CUDA rasteriser against its plain version on the card, bit
            for bit in every case: Pong and Breakout scenes at the pixel
            path's 32,768 frames of 84×84, a ragged frame count and a
@@ -54,7 +58,8 @@ repository around it. Phases, each printing one JSON line with its seconds:
            for 256 steps; Maze-px and FrozenLake-px on the vmap backend at
            B = 4,096 for 128 steps (raster only); rollout(64, render=True)
            for Maze-v0 at B = 65,536. Then the fused rollouts again with
-           host syncs made errors
+           host syncs made errors. No chunk calls fresh_rows (its count
+           stays 0)
   render_check  both kernels against their plain versions at the render
            path's shapes: a K = 1 megastep at B = 65,536 per render id and
            the raster of the 65,536 frames its new state renders to
@@ -64,15 +69,15 @@ repository around it. Phases, each printing one JSON line with its seconds:
   numbers  env steps/s per id: classic and grid at B = 65,536 (CartPole-v1
            also at B = 4,096), Pong-v0 and Breakout-v0 at B = 4,096, K = 8,
            Multitask-v0 at B = 65,536, Maze-px and FrozenLake-px at 4,096
-  split    CartPole-v1: the megastep against its plain version at the main
-           path's shapes, then per-chunk times of the kernel, the
-           fresh-reset precompute and the action sampling. Pong-v0 and
-           Breakout-v0: both kernels against their plain versions on a real
-           chunk, then per-chunk times of the megastep, the two raster
-           launches, the frame-stack select, the precompute and the sampling
-  grid_split  each grid and puzzle body on a real main-path chunk: the
-           megastep against its plain version bit for bit, both timed, and
-           the bound; for Maze-v0 and Snake-v0 the chunk's split
+  bodies   every fused id on a real main-path chunk from its pool's reset:
+           the megastep against its plain twin (the grid bodies bit for
+           bit), kernel and plain times, the resets, the bound over this
+           chunk's bytes and operations, and the chunk's split (the whole
+           chunk, the kernel, the action sampling); the peak device memory
+           of a Maze-v0 chunk
+  split    Pong-v0 and Breakout-v0: both kernels against their plain
+           versions on a real chunk, then per-chunk times of the two raster
+           launches, the frame-stack select and the sampling
   lm_profile  a torch.profiler window over Yi-6B's decode ticks and one
            2,048-token prefill: wall and device-busy ms, idle share, the
            costliest kernels (last, since a profiler slows the launches
@@ -128,22 +133,35 @@ TIMED_RUNS = 3
 
 #: (name fragment, memory bytes/s, fp32 non-tensor FLOP/s, dense bf16
 #: tensor-core FLOP/s), NVIDIA data sheets; the first fragment found in the
-#: card's name applies
+#: card's name applies. Its int32 rate is a quarter of the fp32 FLOP/s:
+#: an SM issues 64 int32 ops a clock against 128 fp32 FMAs (256 FLOP).
 CARDS = (("H100 PCIe", 2.0e12, 51e12, 756e12),
          ("H100 NVL", 3.9e12, 60e12, 835e12),
          ("H100", 3.35e12, 67e12, 989e12), ("H200", 4.8e12, 67e12, 989e12))
 
-#: float ops per lane-step of the CartPole body with TimeLimit, counted in
+INT32_PER_FP32_FLOP = 0.25
+#: float ops per lane-step of each body with TimeLimit, counted in
 #: csrc/megastep.cu: each add, multiply, divide, compare, select, fabsf,
-#: sinf and cosf is one, the TimeLimit fold and the reset selects included
-CARTPOLE_OPS_PER_LANE_STEP = 49
-#: ops per lane-step of the grid and puzzle bodies with TimeLimit, lower
-#: estimates counted in csrc/megastep.cu: one per observation code stored,
-#: plus the move, the plane lookups, reward, done and the TimeLimit fold;
-#: Snake adds four per cell for its ages. Their bytes bound is twenty times
-#: their operations bound or more, so the estimate decides nothing.
-GRID_OPS_PER_LANE_STEP = {"LightsOut": 37, "FrozenLake": 28, "CliffWalk": 62,
-                          "Maze": 78, "Snake": 200}
+#: sinf and cosf is one, the TimeLimit fold included. CartPole's is a
+#: count; the others are lower estimates: the grid and puzzle bodies one
+#: per observation code stored, plus the move, the plane lookups, reward,
+#: done and the TimeLimit fold, Snake four more per cell for its ages;
+#: Acrobot four derivatives of ~30 ops; the rest their step's arithmetic.
+#: Far below the bytes and integer bounds, they decide nothing.
+FLOAT_OPS_PER_LANE_STEP = {"CartPole": 49, "MountainCar": 16, "Pendulum": 24,
+                           "Acrobot": 120, "Pong": 30, "Breakout": 40,
+                           "LightsOut": 37, "FrozenLake": 28, "CliffWalk": 62,
+                           "Maze": 78, "Snake": 200}
+#: int32 ops of one threefry-2x32 block (csrc/megastep.cu: 2 key xors, 2
+#: adds, 20 rounds of add, funnel shift and xor, 5 injections of 3 adds);
+#: every lane-step splits its key (2 blocks), and a lane-step that resets
+#: draws its body's reset (the blocks below, csrc/megastep.cu's header)
+THREEFRY_OPS = 79
+RESET_BLOCKS = {"CartPole": 2, "MountainCar": 1, "Pendulum": 4, "Acrobot": 2,
+                "Pong": 6, "Breakout": 4, "LightsOut": 8, "FrozenLake": 13,
+                "CliffWalk": 30, "Maze": 46, "Snake": 18}
+#: the reset-heavy kernel case: a TimeLimit of 3 over K = 32 steps
+HEAVY_MAX_STEPS = 3
 #: float ops of csrc/raster.cu, counted there: per pixel-segment pair (the
 #: coverage, its clips and the running max; sqrtf and each division one
 #: op), per segment staged (dx, dy, the squared length and its clamp) and
@@ -184,20 +202,20 @@ def card_row(name: str):
 
 def megastep_bytes(b: int, k: int, s: int, o: int) -> int:
     """Bytes one megastep must move: each input read once, each output
-    written once. s counts the TimeLimit row when there is one."""
-    reads = s + k * (1 + s + o)           # state; act, fresh, fresh_obs
-    writes = s + k * (2 * o + 3)          # state; obs, tobs, rew, done, trunc
-    return 4 * b * (reads + writes)
+    written once. s counts the TimeLimit row when there is one; the (B, 2)
+    int64 keys are 4 floats' worth a lane each way."""
+    reads = s + 4 + k                     # state, keys; act
+    writes = s + 4 + k * (2 * o + 3)      # state, keys; obs, tobs, rew,
+    return 4 * b * (reads + writes)       # done, trunc
 
 
-def packed_megastep_bytes(b: int, k: int, s: int, o: int, resets: int) -> int:
-    """Bytes a grid or puzzle megastep must move: the state read and
-    written once, the actions read, obs, terminal_obs, reward, done and
-    truncated written, and the fresh state and observation read only for
-    the `resets` lane-steps that reset (the kernel reads no others)."""
-    reads = s * b + k * b + resets * (s + o)
-    writes = s * b + k * b * (2 * o + 3)
-    return 4 * (reads + writes)
+def megastep_ops(name: str, b: int, k: int, resets: int):
+    """(int32 ops, float ops) one megastep must do on these inputs: the key
+    split of every lane-step and the reset of each of the `resets`
+    lane-steps that reset (counted from the kernel's own done output), and
+    the body's float arithmetic."""
+    blocks = 2 * b * k + resets * RESET_BLOCKS[name]
+    return THREEFRY_OPS * blocks, FLOAT_OPS_PER_LANE_STEP[name] * b * k
 
 
 def raster_work(segs, intens, h: int, w: int):
@@ -220,9 +238,12 @@ def raster_work(segs, intens, h: int, w: int):
             "covered_pairs": covered, "live_segments": live}
 
 
-def bound(bytes_moved, ops, bw, flops):
-    """(bound ms, "bytes" or "operations")."""
-    bytes_ms, ops_ms = 1e3 * bytes_moved / bw, 1e3 * ops / flops
+def bound(bytes_moved, ops, bw, flops, int_ops=0):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and each kind of operations over its peak rate."""
+    bytes_ms = 1e3 * bytes_moved / bw
+    ops_ms = max(1e3 * ops / flops,
+                 1e3 * int_ops / (INT32_PER_FP32_FLOP * flops))
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -251,6 +272,14 @@ def event_ms(torch, fn, n, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def fresh_rows_calls():
+    """The plain megastep's reset precompute, counted per call: no chunk of
+    the CUDA path calls it."""
+    from repro_torch.kernels.envstep import ops
+
+    return ops.fresh_rows.calls
 
 
 def counters():
@@ -362,51 +391,53 @@ def arcade_rows(rng, name, lead, b):
             u(0.14, 0.86), *(board[..., i, :] for i in range(24))]
 
 
-def kernel_inputs(torch, name, time_limit, b, k, seed, device):
-    """numpy-seeded megastep operands for one env body."""
+def lane_keys(torch, rng, b, device):
+    """(b, 2) int64 auto-reset keys of numpy-drawn uint32 words."""
+    return torch.as_tensor(rng.integers(0, 2**32, (b, 2)), dtype=torch.int64,
+                           device=device).contiguous()
+
+
+def step_counters(rng, name, max_steps, k, b):
+    """TimeLimit rows: near the limit for the arcade and grid bodies, so
+    that the limit cuts inside K steps; anywhere below it for the classic
+    ones, whose episodes end by themselves."""
+    lo = 0 if name in STATE_RANGES else max(0, max_steps - 2 * k)
+    return rng.integers(lo, max_steps, (1, b))
+
+
+def kernel_inputs(torch, name, max_steps, b, k, seed, device):
+    """numpy-seeded megastep operands (state, keys, actions) of a classic
+    or arcade body."""
     import numpy as np
 
-    from repro_torch.kernels.envstep import BODIES
-
-    body = BODIES[name]
     rng = np.random.default_rng(seed)
-    arcade = name not in STATE_RANGES
-
-    def states(lead):
-        if arcade:
-            rows = arcade_rows(rng, name, lead, b)
-        else:
-            rows = [rng.uniform(lo, hi, lead + (b,))
-                    for lo, hi in STATE_RANGES[name]]
-        if time_limit:
-            lo = MAX_STEPS[name] - 2 * k if arcade else 0
-            rows.append(rng.integers(lo, MAX_STEPS[name], lead + (b,)))
-        return np.stack(rows, -2)
-
+    if name in STATE_RANGES:
+        rows = [rng.uniform(lo, hi, b) for lo, hi in STATE_RANGES[name]]
+    else:
+        rows = arcade_rows(rng, name, (), b)
+    if max_steps is not None:
+        rows.append(step_counters(rng, name, max_steps, k, b)[0])
     if name == "Pendulum":
         act = rng.uniform(-3.0, 3.0, (k, b))
     else:
         act = rng.integers(0, 3 if name != "CartPole" else 2, (k, b))
-    fresh = states((k,))
-    if time_limit:
-        fresh[:, -1] = 0
-    ops = (states(()), act, fresh,
-           rng.standard_normal((k, body.obs_size, b)))
-    return [torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
-            for x in ops]
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                     device=device).contiguous()
+    return [as_t(np.stack(rows)), lane_keys(torch, rng, b, device), as_t(act)]
 
 
-EXACT_ALL = ("new_state", "obs", "terminal_obs", "reward", "done",
-             "truncated")
+#: the megastep's outputs, in order
+OUTPUTS = ("new_state", "final_keys", "obs", "terminal_obs", "reward", "done",
+           "truncated")
+EXACT_ALL = OUTPUTS
 
 
 def compare(torch, got, want, what, exact=("done", "truncated")):
-    """The `exact` outputs bit for bit, floats within RTOL/ATOL; max abs
-    error."""
-    names = ("new_state", "obs", "terminal_obs", "reward", "done", "truncated")
+    """The `exact` outputs and the final keys bit for bit, floats within
+    RTOL/ATOL; max abs error."""
     err = 0.0
-    for n, g, w in zip(names, got, want):
-        if n in exact:
+    for n, g, w in zip(OUTPUTS, got, want):
+        if n in exact or n == "final_keys":
             if not torch.equal(g, w):
                 raise AssertionError(f"{what}: {n} differs in "
                                      f"{int((g != w).sum())} places")
@@ -415,6 +446,15 @@ def compare(torch, got, want, what, exact=("done", "truncated")):
                                    msg=lambda m: f"{what}: {n}: {m}")
         err = max(err, float((g - w).abs().max()))
     return err
+
+
+def plain_megastep(core, spec, ops, max_steps):
+    """The kernel's plain twin on the same operands: the auto-reset key
+    chain and fresh rows of `fresh_rows`, then `megastep_ref`."""
+    from repro_torch.kernels.envstep import env_megastep
+
+    return env_megastep(spec, *ops, core=core, max_steps=max_steps,
+                        backend="torch")
 
 
 def _envs():
@@ -495,78 +535,76 @@ def grid_state_rows(rng, name, b):
     return np.concatenate([np.stack(lead), plane.T]).astype(np.float32), act
 
 
-def grid_kernel_inputs(torch, name, time_limit, b, k, seed, device):
+def grid_kernel_inputs(torch, name, max_steps, b, k, seed, device):
     """Megastep operands of a grid or puzzle body: the state and the first
-    step's actions from `grid_state_rows`, random actions after it, and the
-    fresh states and observations of K·b real resets on the card."""
+    step's actions from `grid_state_rows`, random actions after it, and
+    random keys."""
     import numpy as np
 
-    from repro_torch import random as R
-    from repro_torch.kernels.envstep.specs import spec_for
-
-    env = _envs()[name]
-    spec = spec_for(env)
     rng = np.random.default_rng(seed)
     rows, act0 = grid_state_rows(rng, name, b)
     act = rng.integers(0, 25 if name == "LightsOut" else 4, (k, b))
     act[0] = act0
-    keys = R.split(R.PRNGKey(seed, device), k * b).reshape(k, b, 2)
-    fresh_state, fresh_obs = env.reset(keys)
-    fresh = spec.flatten(fresh_state)
-    if time_limit:
-        lo = MAX_STEPS[name] - 2 * k
-        rows = np.concatenate([rows, rng.integers(lo, MAX_STEPS[name],
-                                                  (1, b))])
-        fresh = torch.cat([fresh, torch.zeros_like(fresh[:, :1])], 1)
+    if max_steps is not None:
+        rows = np.concatenate([rows, step_counters(rng, name, max_steps, k,
+                                                   b)])
     as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
-    return [as_t(rows).contiguous(), as_t(act).contiguous(),
-            fresh.contiguous(),
-            fresh_obs.transpose(-1, -2).to(torch.float32).contiguous()]
+    return [as_t(rows).contiguous(), lane_keys(torch, rng, b, device),
+            as_t(act).contiguous()]
 
 
 def phase_kernel(torch, device):
-    from repro_torch.kernels.envstep import BODIES, megastep_cuda, megastep_ref
+    """Every body against its plain twin, with its TimeLimit, without one,
+    and reset-heavy; the resets per case and per body."""
+    from repro_torch.core.wrappers import TimeLimit
+    from repro_torch.kernels.envstep import BODIES, megastep_cuda
     from repro_torch.kernels.envstep.specs import spec_for
 
     t0 = time.perf_counter()
-    rows, worst = [], 0.0
+    rows, worst, resets = [], 0.0, {}
     with uncounted():
         for i, (name, env) in enumerate(_envs().items()):
             spec = spec_for(env)
-            k = KERNEL_K.get(name, K)
             arcade = name in KERNEL_K
             exact = ("reward", "done", "truncated") if arcade else (
                 "done", "truncated")
             if name in GRID:
                 exact = EXACT_ALL
-            for time_limit in (True, False):
-                max_steps = MAX_STEPS[name] if time_limit else None
+            for max_steps in (MAX_STEPS[name], None, HEAVY_MAX_STEPS):
+                heavy = max_steps == HEAVY_MAX_STEPS
+                k = K if heavy else KERNEL_K.get(name, K)
                 inputs = grid_kernel_inputs if name in GRID else kernel_inputs
-                ops = inputs(torch, name, time_limit, B_CHECK, k, i, device)
+                ops = inputs(torch, name, max_steps, B_CHECK, k, i, device)
+                core = env if max_steps is None else TimeLimit(env, max_steps)
                 got = megastep_cuda(BODIES[name].kernel_id, *ops,
                                     max_steps=max_steps)
-                want = megastep_ref(spec.step_rows, *ops, max_steps=max_steps)
+                want = plain_megastep(core, spec, ops, max_steps)
                 err = compare(torch, got, want,
-                              f"{name} max_steps={max_steps}", exact)
+                              f"{name} max_steps={max_steps} K={k}", exact)
                 worst = max(worst, err)
+                reward, done, trunc = got[4:]
                 case = {"body": name, "max_steps": max_steps, "K": k,
-                        "max_abs_err": err, "dones": int(got[4].sum()),
-                        "truncations": int(got[5].sum())}
+                        "max_abs_err": err, "resets": int(done.sum()),
+                        "truncations": int(trunc.sum())}
+                if heavy and case["resets"] == 0:
+                    raise AssertionError(f"{name}: no lane reset in the "
+                                         "reset-heavy case")
+                resets[name] = resets.get(name, 0) + case["resets"]
                 if arcade or name in GRID:
-                    case["reward_sum"] = float(got[3].sum())
+                    case["reward_sum"] = float(reward.sum())
                 if name in ("Maze", "Snake"):   # goals; eats, wins included
-                    case["reward_1"] = int((got[3] == 1).sum())
+                    case["reward_1"] = int((reward == 1).sum())
                     case["reward_1_and_done"] = int(
-                        ((got[3] == 1) & (got[4] == 1)).sum())
-                    if name == "Breakout":
-                        case["bricks_broken"] = int((got[3] >= 1).sum())
-                        case["boards_cleared"] = int((got[3] >= 5).sum())
+                        ((reward == 1) & (done == 1)).sum())
+                if name == "Breakout":
+                    case["bricks_broken"] = int((reward >= 1).sum())
+                    case["boards_cleared"] = int((reward >= 5).sum())
                 rows.append(case)
     emit({"phase": "kernel", "seconds": time.perf_counter() - t0,
           "B": B_CHECK, "rtol": RTOL, "atol": ATOL,
-          "exact": "done, truncated; reward too for Pong and Breakout; "
-                   "every output for the grid and puzzle bodies",
-          "cases": rows})
+          "exact": "final keys, done, truncated; reward too for Pong and "
+                   "Breakout; every output for the grid and puzzle bodies",
+          "resets_per_body": resets, "cases": rows})
     return worst
 
 
@@ -744,9 +782,12 @@ def drive(torch, sync, env_id, b, unroll, steps, key, device, want,
 def phase_main(torch, device, sync):
     from repro_torch import random as R
 
+    from repro_torch.kernels.envstep import ops
+
     t0 = time.perf_counter()
     key = R.PRNGKey(0, device)
     pools, rows, paths = {}, [], {}
+    ops.fresh_rows.calls = 0
 
     # classic control (PR 11's path): megastep only
     reset_counts()
@@ -832,10 +873,14 @@ def phase_main(torch, device, sync):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         check_rollout(torch, env_id, out[0], out[1], pool.num_envs)
+    if fresh_rows_calls():
+        raise AssertionError(f"{fresh_rows_calls()} calls of fresh_rows on "
+                             "the CUDA path: the kernel resets in-kernel")
     launches = {n: sum(p[n] for p in paths.values()) for n in
                 ("megastep", "raster")}
     emit({"phase": "main", "seconds": time.perf_counter() - t0, "rows": rows,
           "launches_per_path": paths, "launches": launches,
+          "fresh_rows_calls": fresh_rows_calls(),
           "sync_free_steady_state": list(pools)})
     return pools, vmap_pools, render_pools, launches
 
@@ -957,11 +1002,10 @@ def phase_numbers(device, pools, vmap_pools, sync):
 
 
 def chunk_ops(torch, pool, state, k, key, device):
-    """One fused chunk's megastep inputs from the pool's `state`, built as
-    its step builds them: (core, spec, max_steps, ops)."""
+    """One fused chunk's megastep operands from the pool's `state`, built as
+    its step builds them: (core, spec, max_steps, (rows, keys, actions))."""
     from repro_torch import random as R
     from repro_torch.core.spaces import sample_batch
-    from repro_torch.kernels.envstep import fresh_rows
     from repro_torch.kernels.envstep.ops import _resolve, state_rows
 
     core, spec, max_steps, num_stack, _ = _resolve(pool.env)
@@ -969,10 +1013,9 @@ def chunk_ops(torch, pool, state, k, key, device):
     acts = sample_batch(pool.action_space, R.fold_in(key, steps),
                         pool.num_envs)     # (K, B), or (K, B, 1) if continuous
     acts = acts.reshape(k, pool.num_envs).to(torch.float32).contiguous()
-    _, fresh, fobs = fresh_rows(pool.env, state.key, k)
     inner = state.inner.inner if num_stack else state.inner
     rows = state_rows(spec, max_steps, inner).contiguous()
-    return core, spec, max_steps, (rows, acts, fresh, fobs)
+    return core, spec, max_steps, (rows, state.key.contiguous(), acts)
 
 
 def phase_render_check(torch, device, pools):
@@ -982,7 +1025,7 @@ def phase_render_check(torch, device, pools):
     the raster of the frames that step's new state renders to."""
     from repro_torch import random as R
     from repro_torch.core.spaces import sample_batch
-    from repro_torch.kernels.envstep import megastep_cuda, megastep_ref
+    from repro_torch.kernels.envstep import megastep_cuda
 
     t0 = time.perf_counter()
     key = R.PRNGKey(4, device)
@@ -997,10 +1040,10 @@ def phase_render_check(torch, device, pools):
                                                 pool.num_envs), k)
             core, spec, max_steps, ops = chunk_ops(
                 torch, pool, ps.env_state, 1, R.fold_in(key, 99), device)
-            grid = spec.name in GRID     # this slice's: bit for bit
+            grid = spec.name in GRID     # bit for bit
             got = megastep_cuda(spec.kernel_id, *ops, max_steps=max_steps)
-            m_err = compare(torch, got, megastep_ref(
-                spec.step_rows, *ops, max_steps=max_steps),
+            m_err = compare(torch, got, plain_megastep(
+                core, spec, ops, max_steps),
                 f"{env_id} render-path step B={pool.num_envs} K=1",
                 EXACT_ALL if grid else ("done", "truncated"))
             base = core.unwrapped
@@ -1022,66 +1065,108 @@ def phase_render_check(torch, device, pools):
     return mega_err, raster_err
 
 
-def phase_split(torch, device, pool, sync, numbers):
-    """Per-chunk cost of each layer of a fused CartPole-v1 chunk."""
+def chunk_memory(torch, pool, device):
+    """Device memory of one fused chunk (`step_many` over `unroll` steps)
+    from the pool's reset: the peak allocated during the chunk, and that
+    peak above what was allocated before it. Uses only the pool's public
+    surface, so it measures an earlier tree's package as well."""
     from repro_torch import random as R
     from repro_torch.core.spaces import sample_batch
-    from repro_torch.kernels.envstep import (fresh_rows, megastep_cuda,
-                                             megastep_ref)
+
+    h = pool.xla()
+    key = R.PRNGKey(5, device)
+    ps = h.init(key)
+    steps = torch.arange(1, pool.unroll + 1, device=device)
+    acts = sample_batch(pool.action_space, R.fold_in(key, steps),
+                        pool.num_envs)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = h.step_many(ps, acts)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return {"id": pool.env.name, "B": pool.num_envs, "K": pool.unroll,
+            "peak_bytes": peak, "chunk_bytes_above_start": peak - before}
+
+
+def phase_bodies(torch, device, pools, sync, numbers, bw, flops):
+    """Every fused id on a real chunk of its main path (its pool's B and K,
+    from the pool's reset): the megastep against its plain twin (the grid
+    bodies bit for bit, the arcade rewards exact), both timed; the resets;
+    the bound over this chunk's bytes and operations; the chunk's split
+    (the whole chunk from phase numbers, the kernel, the action sampling);
+    and the peak device memory of a Maze-v0 chunk."""
+    from repro_torch import random as R
+    from repro_torch.core.spaces import sample_batch
+    from repro_torch.kernels.envstep import megastep_cuda
 
     t0 = time.perf_counter()
-    env = pool.env
     key = R.PRNGKey(3, device)
-    state = pool.xla().init(R.PRNGKey(0, device)).env_state
-    _, spec, max_steps, ops = chunk_ops(torch, pool, state, K, key, device)
-
-    with uncounted():
-        # the kernel against its plain version at the main path's own shapes
-        err = compare(torch, megastep_cuda(spec.kernel_id, *ops,
-                                           max_steps=max_steps),
-                      megastep_ref(spec.step_rows, *ops, max_steps=max_steps),
-                      f"CartPole-v1 main-path chunk B={B_MAIN}")
-        kernel_ms = event_ms(torch, lambda: megastep_cuda(
-            spec.kernel_id, *ops, max_steps=max_steps), 50, warmup=3)
-        plain_ms = event_ms(torch, lambda: megastep_ref(
-            spec.step_rows, *ops, max_steps=max_steps), 5, warmup=0)
-
-    steps = torch.arange(1, K + 1, device=device)
-    precompute_ms = 1e3 * timed(lambda: fresh_rows(env, state.key, K), 5, sync)
-    sampling_ms = 1e3 * timed(
-        lambda: sample_batch(pool.action_space, R.fold_in(key, steps), B_MAIN),
-        5, sync)
-    chunk_ms = 1e3 * numbers["CartPole-v1"]["seconds_median"] / (STEPS // K)
-    emit({"phase": "split", "seconds": time.perf_counter() - t0,
-          "id": "CartPole-v1", "B": B_MAIN, "K": K,
-          "max_abs_err_vs_plain": err,
-          "per_chunk_ms": {"rollout_chunk": chunk_ms, "kernel": kernel_ms,
-                           "fresh_reset_precompute": precompute_ms,
-                           "action_sampling": sampling_ms},
-          "clock": "kernel: CUDA events over 50 launches; others: host "
-                   "perf_counter + synchronize, median of 5"})
-    return kernel_ms, plain_ms, spec, err
+    bodies, worst = {}, 0.0
+    for env_id in IDS + PIXEL_IDS + GRID_IDS:
+        pool = pools[env_id]
+        b, k = pool.num_envs, pool.unroll
+        state = pool.xla().init(R.PRNGKey(0, device)).env_state
+        core, spec, max_steps, ops = chunk_ops(torch, pool, state, k, key,
+                                               device)
+        exact = EXACT_ALL if spec.name in GRID else (
+            ("reward", "done", "truncated") if env_id in PIXEL_IDS
+            else ("done", "truncated"))
+        with uncounted():
+            got = megastep_cuda(spec.kernel_id, *ops, max_steps=max_steps)
+            err = compare(torch, got, plain_megastep(core, spec, ops,
+                                                     max_steps),
+                          f"{env_id} main-path chunk B={b} K={k}", exact)
+            ms = event_ms(torch, lambda: megastep_cuda(
+                spec.kernel_id, *ops, max_steps=max_steps), 20, warmup=3)
+            plain_ms = event_ms(torch, lambda: plain_megastep(
+                core, spec, ops, max_steps), 3, warmup=0)
+        worst = max(worst, err)
+        resets = int(got[5].sum())
+        sp = spec.state_size + (0 if max_steps is None else 1)
+        nbytes = megastep_bytes(b, k, sp, spec.obs_size)
+        int_ops, float_ops = megastep_ops(spec.name, b, k, resets)
+        bound_ms, bound_by = bound(nbytes, float_ops, bw, flops, int_ops)
+        steps = torch.arange(1, k + 1, device=device)
+        bodies[spec.name] = {
+            "id": env_id, "body": spec.name, "B": b, "K": k, "S": sp,
+            "O": spec.obs_size, "max_abs_err": err, "resets": resets,
+            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "int_ops": int_ops, "float_ops": float_ops,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "rollout_chunk_ms": 1e3 * numbers[env_id]["seconds_median"]
+            / (STEPS // k),
+            "action_sampling_ms": 1e3 * timed(
+                lambda: sample_batch(pool.action_space, R.fold_in(key, steps),
+                                     b), 5, sync)}
+    memory = chunk_memory(torch, pools[GRID_RENDER_ID], device)
+    emit({"phase": "bodies", "seconds": time.perf_counter() - t0,
+          "bodies": list(bodies.values()), "chunk_memory": memory,
+          "rates": {"bytes_per_s": bw, "fp32_flops": flops,
+                    "int32_ops": INT32_PER_FP32_FLOP * flops},
+          "clock": "kernel: CUDA events over 20 launches, plain over 3; "
+                   "rollout chunk: phase numbers' median over chunks; "
+                   "sampling: host perf_counter + synchronize, median of 5"})
+    return bodies, worst, memory
 
 
 def phase_pixel_split(torch, device, env_id, pool, sync, numbers, bw, flops):
     """Both kernels against their plain versions on a real chunk of a pixel
-    id, then the per-chunk cost of each layer of that chunk."""
+    id, then the per-chunk cost of the raster and the frame stack."""
     from repro_torch import random as R
     from repro_torch.core.spaces import sample_batch
-    from repro_torch.kernels.envstep import (fresh_rows, megastep_cuda,
-                                             megastep_ref)
+    from repro_torch.kernels.envstep import megastep_cuda
     from repro_torch.kernels.envstep.ops import _render_obs_rows, _stack_frames
     from repro_torch.kernels.raster import rasterize_cuda
 
     t0 = time.perf_counter()
-    env = pool.env
     key = R.PRNGKey(3, device)
     state = pool.xla().init(R.PRNGKey(0, device)).env_state
     core, spec, max_steps, ops = chunk_ops(torch, pool, state, K_PIXEL, key,
                                            device)
     base = core.unwrapped
     h, w = base.frame_shape
-    fobs = ops[3]
     steps = torch.arange(1, K_PIXEL + 1, device=device)
 
     def scenes(obs_rows):
@@ -1091,111 +1176,45 @@ def phase_pixel_split(torch, device, env_id, pool, sync, numbers, bw, flops):
 
     with uncounted():
         got = megastep_cuda(spec.kernel_id, *ops, max_steps=max_steps)
-        mega_err = compare(torch, got, megastep_ref(spec.step_rows, *ops,
-                                                    max_steps=max_steps),
+        mega_err = compare(torch, got, plain_megastep(core, spec, ops,
+                                                      max_steps),
                            f"{env_id} main-path chunk B={B_PIXEL}",
                            ("reward", "done", "truncated"))
-        pre_scene, fresh_scene = scenes(got[2]), scenes(fobs)
+        # the terminal_obs rows' scenes and the obs rows' (the fresh state's
+        # where a lane reset)
+        pre_scene, post_scene = scenes(got[3]), scenes(got[2])
         raster_err = 0.0
-        for what, sc in (("stepped", pre_scene), ("fresh", fresh_scene)):
+        for what, sc in (("stepped", pre_scene), ("post-reset", post_scene)):
             raster_err = max(raster_err, raster_check(
                 torch, *sc, h, w, f"{env_id} chunk {what} scenes")[0])
-        mega_ms = event_ms(torch, lambda: megastep_cuda(
-            spec.kernel_id, *ops, max_steps=max_steps), 50, warmup=3)
-        mega_plain_ms = event_ms(torch, lambda: megastep_ref(
-            spec.step_rows, *ops, max_steps=max_steps), 3, warmup=0)
         raster = raster_times(torch, *pre_scene, h, w, bw, flops)
         two_raster_ms = event_ms(torch, lambda: [
-            rasterize_cuda(*sc, h, w) for sc in (pre_scene, fresh_scene)], 10)
-        pre = _render_obs_rows(core, spec, got[2], "cuda")
-        fresh_px = _render_obs_rows(core, spec, fobs, "cuda")
-    done = got[4].to(torch.bool)
+            rasterize_cuda(*sc, h, w) for sc in (pre_scene, post_scene)], 10)
+        pre = _render_obs_rows(core, spec, got[3], "cuda")
+        post = _render_obs_rows(core, spec, got[2], "cuda")
+    done = got[5].to(torch.bool)
     frames = state.inner.frames
-    select_ms = 1e3 * timed(lambda: _stack_frames(frames, pre, fresh_px, done),
+    select_ms = 1e3 * timed(lambda: _stack_frames(frames, pre, post, done),
                             5, sync)
-    precompute_ms = 1e3 * timed(lambda: fresh_rows(env, state.key, K_PIXEL),
-                                5, sync)
     sampling_ms = 1e3 * timed(
         lambda: sample_batch(pool.action_space, R.fold_in(key, steps),
                              B_PIXEL), 5, sync)
     chunk_ms = 1e3 * numbers[env_id]["seconds_median"] / (STEPS // K_PIXEL)
-    mega_bytes = megastep_bytes(B_PIXEL, K_PIXEL, spec.state_size + 1,
-                                spec.obs_size)
     emit({"phase": "split", "seconds": time.perf_counter() - t0,
           "id": env_id, "B": B_PIXEL, "K": K_PIXEL,
           "max_abs_err_vs_plain": {"megastep": mega_err, "raster": raster_err},
-          "per_chunk_ms": {"rollout_chunk": chunk_ms, "megastep": mega_ms,
+          "resets": int(got[5].sum()),
+          "per_chunk_ms": {"rollout_chunk": chunk_ms,
                            "two_raster_launches": two_raster_ms,
                            "frame_stack_select": select_ms,
-                           "fresh_reset_precompute": precompute_ms,
                            "action_sampling": sampling_ms},
-          "megastep": {"ms": mega_ms, "plain_ms": mega_plain_ms,
-                       "bytes": mega_bytes,
-                       "bytes_bound_ms": 1e3 * mega_bytes / bw},
           "raster_stepped_scenes": raster,
-          "clock": "kernels: CUDA events (megastep over 50 launches, the two "
-                   "raster launches over 10 pairs); others: host "
-                   "perf_counter + synchronize, median of 5"})
+          "clock": "kernels: CUDA events (the two raster launches over 10 "
+                   "pairs); others: host perf_counter + synchronize, median "
+                   "of 5"})
     return {"raster": raster, "megastep_err": mega_err,
             "raster_err": raster_err, "frames": pre_scene[1].shape[0],
             "S": pre_scene[1].shape[1]}
-
-
-def phase_grid_split(torch, device, pools, sync, numbers, bw, flops):
-    """Per grid or puzzle body, on a real chunk of its main path (B =
-    65,536, K = 32 from the pool's reset): the megastep against its plain
-    version bit for bit, both timed, and the bound. For Maze-v0 and
-    Snake-v0 also the chunk's split: fresh-reset precompute, action
-    sampling, megastep."""
-    from repro_torch import random as R
-    from repro_torch.core.spaces import sample_batch
-    from repro_torch.kernels.envstep import (fresh_rows, megastep_cuda,
-                                             megastep_ref)
-
-    t0 = time.perf_counter()
-    key = R.PRNGKey(3, device)
-    steps = torch.arange(1, K + 1, device=device)
-    bodies, worst = {}, 0.0
-    for env_id in GRID_IDS:
-        pool = pools[env_id]
-        state = pool.xla().init(R.PRNGKey(0, device)).env_state
-        _, spec, max_steps, ops = chunk_ops(torch, pool, state, K, key, device)
-        with uncounted():
-            got = megastep_cuda(spec.kernel_id, *ops, max_steps=max_steps)
-            err = compare(torch, got, megastep_ref(
-                spec.step_rows, *ops, max_steps=max_steps),
-                f"{env_id} main-path chunk B={B_MAIN}", EXACT_ALL)
-            ms = event_ms(torch, lambda: megastep_cuda(
-                spec.kernel_id, *ops, max_steps=max_steps), 20, warmup=3)
-            plain_ms = event_ms(torch, lambda: megastep_ref(
-                spec.step_rows, *ops, max_steps=max_steps), 3, warmup=0)
-        worst = max(worst, err)
-        resets = int(got[4].sum())
-        nbytes = packed_megastep_bytes(B_MAIN, K, spec.state_size + 1,
-                                       spec.obs_size, resets)
-        nops = B_MAIN * K * GRID_OPS_PER_LANE_STEP[spec.name]
-        bound_ms, bound_by = bound(nbytes, nops, bw, flops)
-        row = {"id": env_id, "body": spec.name, "B": B_MAIN, "K": K,
-               "S": spec.state_size + 1, "O": spec.obs_size,
-               "max_abs_err": err, "resets": resets, "ms": ms,
-               "plain_ms": plain_ms, "bytes": nbytes, "ops": nops,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "rollout_chunk_ms": 1e3 * numbers[env_id]["seconds_median"]
-               / (STEPS // K)}
-        if env_id in ("Maze-v0", "Snake-v0"):
-            row["fresh_reset_precompute_ms"] = 1e3 * timed(
-                lambda: fresh_rows(pool.env, state.key, K), 5, sync)
-            row["action_sampling_ms"] = 1e3 * timed(
-                lambda: sample_batch(pool.action_space, R.fold_in(key, steps),
-                                     B_MAIN), 5, sync)
-        bodies[spec.name] = row
-    emit({"phase": "grid_split", "seconds": time.perf_counter() - t0,
-          "bodies": list(bodies.values()),
-          "clock": "kernel: CUDA events over 20 launches, plain over 3; "
-                   "rollout chunk: phase numbers' median over chunks; "
-                   "precompute, sampling: host perf_counter + synchronize, "
-                   "median of 5"})
-    return bodies, worst
 
 
 # -- the LM serving path (flash attention) --------------------------------------
@@ -1737,12 +1756,9 @@ def main() -> int:
     phase_golden(device)
     numbers = phase_numbers(device, pools, vmap_pools, sync)
     del vmap_pools
-    kernel_ms, plain_ms, spec, split_err = phase_split(
-        torch, device, pools["CartPole-v1"], sync, numbers)
-    mega_err = max(mega_err, split_err)
-    grid, grid_err = phase_grid_split(torch, device, pools, sync, numbers, bw,
-                                      flops)
-    mega_err = max(mega_err, grid_err)
+    bodies, bodies_err, memory = phase_bodies(torch, device, pools, sync,
+                                              numbers, bw, flops)
+    mega_err = max(mega_err, bodies_err)
     pixel = {}
     for env_id in PIXEL_IDS:
         pixel[env_id] = phase_pixel_split(torch, device, env_id, pools[env_id],
@@ -1752,10 +1768,7 @@ def main() -> int:
     del pools
     phase_lm_profile(torch, device)
 
-    sp = spec.state_size + 1
-    bytes_moved = megastep_bytes(B_MAIN, K, sp, spec.obs_size)
-    mega_bound, mega_by = bound(bytes_moved, B_MAIN * K *
-                                CARTPOLE_OPS_PER_LANE_STEP, bw, flops)
+    cartpole = bodies["CartPole"]
     pong = pixel["Pong-v0"]
     emit({"kernels": [{
         "name": "megastep",
@@ -1764,17 +1777,19 @@ def main() -> int:
         "replaces": "src/repro/kernels/envstep/megastep.py:80",
         "launches": launches["megastep"],
         "max_abs_err": mega_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": mega_bound,
-        "bound_by": mega_by,
+        "ms": cartpole["ms"],
+        "plain_ms": cartpole["plain_ms"],
+        "bound_ms": cartpole["bound_ms"],
+        "bound_by": cartpole["bound_by"],
         "library_ms": None,
         "library": "none: no single PyTorch call computes it",
-        "shape": {"id": "CartPole-v1", "B": B_MAIN, "K": K,
-                  "bytes": bytes_moved},
-        "grid_bodies": {n: {k: b[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "bytes", "resets")}
-                        for n, b in grid.items()},
+        "shape": {k: cartpole[k] for k in ("id", "B", "K", "bytes", "int_ops",
+                                           "float_ops", "resets")},
+        "bodies": {n: {k: b[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "bytes", "int_ops",
+                                         "resets")}
+                   for n, b in bodies.items()},
+        "maze_chunk_memory": memory,
         "card": smi,
     }, {
         "name": "raster",

@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""Time the package's raster and flash kernels beside other builds of the
-same C interface, in one process on one GPU.
+"""Time the package's megastep, raster and flash kernels beside other
+builds of the same C interface, in one process on one GPU.
 
     python3 kernel_ab.py DIR [DIR ...]
 
 from the repository root, on a machine with a CUDA card and the CUDA
-toolkit. Each DIR holds a raster.cu, a flash.cu or both, with the C entry
-points of src/repro_torch/csrc's: an earlier commit's sources (`git archive
-<commit> src/repro_torch/csrc`), or a copy of csrc/raster.cu with other
-constants. They are built in parallel with the package's nvcc flags into
-the package's _build/ab/, and each build runs through the package's own
-wrapper, whose library is pointed at the build for the while: every launch
-is checked as the package's are.
+toolkit. Each DIR holds a megastep.cu, a raster.cu, a flash.cu or several,
+with the C entry points of src/repro_torch/csrc's: an earlier commit's
+sources (`git archive <commit> src/repro_torch/csrc`, where the interface
+is the same), or a copy of a source with other constants. They are built in
+parallel with the package's nvcc flags into the package's _build/ab/, and
+each build runs through the package's own wrapper, whose library is
+pointed at the build for the while: every launch is checked as the
+package's are. Only the kernels some DIR holds are timed.
+
+Megastep. For each fused id of chip_smoke.py's phase main, at its B and K:
+a chunk of its main path after WARM_CHUNKS chunks from the pool's reset
+(episodes under way, so lanes reset at their steady rate); for the grid
+and puzzle bodies also the reset-heavy case of phase kernel (a TimeLimit
+of 3 over K = 32). Every build's outputs must equal the package kernel's
+bit for bit (chip_smoke.py holds that one against its plain twin).
 
 Raster. The scenes are those that chip_smoke.py's phase main draws. For
 each of its raster families (the four classic render rollouts, Pong-v0,
@@ -43,6 +51,9 @@ from pathlib import Path
 import chip_smoke as C
 
 RUNS = 10
+#: chunks each megastep pool runs before the chunk that is timed
+WARM_CHUNKS = 8
+KERNELS = ("megastep", "raster", "flash")
 #: the raster families of chip_smoke.py's phase main: (id, B, unroll,
 #: render, steps recorded, raster launches in phase main)
 FAMILIES = (
@@ -70,14 +81,14 @@ def routed(module, lib):
 
 
 def build_dirs(dirs):
-    """{(dir index, "raster" or "flash"): ctypes.CDLL} of every source the
-    dirs hold, built all at once."""
+    """{(dir index, kernel name): ctypes.CDLL} of every source the dirs
+    hold, built all at once."""
     from repro_torch.kernels import build
 
     jobs = {name: (build.library_path(name), build.CSRC / f"{name}.cu")
-            for name in ("raster", "flash")}        # the package's own
+            for name in KERNELS}        # the package's own
     for i, d in enumerate(dirs):
-        for name in ("raster", "flash"):
+        for name in KERNELS:
             if (d / f"{name}.cu").exists():
                 jobs[(i, name)] = (build.BUILD_DIR / "ab" / f"{i}-{name}.so",
                                    d / f"{name}.cu")
@@ -107,6 +118,61 @@ def record_launches(env_id, b, unroll, render, steps, device):
     finally:
         ops.rasterize_cuda = original
     return seen
+
+
+def steady_chunk(torch, env_id, device):
+    """(pool, chunk operands) of env_id's main-path pool, WARM_CHUNKS
+    chunks after its reset."""
+    import repro_torch
+    from repro_torch import random as R
+    from repro_torch.core.spaces import sample_batch
+
+    pixel = env_id in C.PIXEL_IDS
+    b, k = (C.B_PIXEL, C.K_PIXEL) if pixel else (C.B_MAIN, C.K)
+    pool = repro_torch.make_vec(env_id, b, unroll=k, device=device)
+    h, key = pool.xla(), R.PRNGKey(0, device)
+    ps = h.init(key)
+    for i in range(WARM_CHUNKS):
+        steps = torch.arange(i * k + 1, (i + 1) * k + 1, device=device)
+        ps, _ = h.step_many(ps, sample_batch(pool.action_space,
+                                             R.fold_in(key, steps), b))
+    return pool, C.chunk_ops(torch, pool, ps.env_state, k,
+                             R.fold_in(key, 7), device)
+
+
+def megastep_ab(torch, device, builds, smi):
+    from repro_torch.kernels.envstep import BODIES, megastep, megastep_cuda
+
+    names = list(builds)
+    for env_id in C.IDS + C.PIXEL_IDS + C.GRID_IDS:
+        pool, (core, spec, max_steps, ops) = steady_chunk(torch, env_id,
+                                                          device)
+        cases = [(f"{env_id} main path, chunk {WARM_CHUNKS + 1}", ops,
+                  max_steps)]
+        if spec.name in C.GRID:
+            cases.append((f"{spec.name} reset-heavy", C.grid_kernel_inputs(
+                torch, spec.name, C.HEAVY_MAX_STEPS, C.B_MAIN, C.K, 0,
+                device), C.HEAVY_MAX_STEPS))
+        for what, args, steps in cases:
+            call = lambda: megastep_cuda(BODIES[spec.name].kernel_id, *args,
+                                         max_steps=steps)
+            want = call()
+            for name, lib in builds.items():
+                with routed(megastep, lib):
+                    got = call()
+                for n, g, w in zip(C.OUTPUTS, got, want):
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"{name} on {what}: {n} differs "
+                                             "from the package's kernel")
+            ms = {n: [] for n in names}
+            for order in (names, names[::-1]):
+                for name in order:
+                    with routed(megastep, builds[name]):
+                        ms[name].append(C.event_ms(torch, call, RUNS * 2))
+            C.emit({"case": f"megastep, {what}", "B": int(args[2].shape[1]),
+                    "K": int(args[2].shape[0]), "max_steps": steps,
+                    "resets": int(want[5].sum()), "ms": ms, "card": smi})
+        del pool, ops, cases
 
 
 def raster_ab(torch, device, builds, smi):
@@ -191,7 +257,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("dirs", type=Path, nargs="+",
-                        help="directories of raster.cu and/or flash.cu")
+                        help="directories of megastep.cu, raster.cu and/or "
+                             "flash.cu")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab.py needs a CUDA device", file=sys.stderr)
@@ -200,11 +267,12 @@ def main() -> int:
     _, smi = C.phase_device(torch)
     device = torch.device("cuda")
     libs = build_dirs(args.dirs)
-    for kernel, run in (("raster", raster_ab), ("flash", flash_ab)):
-        builds = {"package": None, **{str(args.dirs[i]): lib
-                                      for (i, k), lib in libs.items()
-                                      if k == kernel}}
-        run(torch, device, builds, smi)
+    for kernel, run in (("megastep", megastep_ab), ("raster", raster_ab),
+                        ("flash", flash_ab)):
+        others = {str(args.dirs[i]): lib for (i, k), lib in libs.items()
+                  if k == kernel}
+        if others:
+            run(torch, device, {"package": None, **others}, smi)
     return 0
 
 

@@ -7,7 +7,8 @@ into a 4×6 brick grid; each broken brick pays +1, clearing the board pays a
 with no reward. Coordinates are the rasteriser's [0, 1]², x rightward, y
 downward. The observation is the state vector (ball, paddle, brick board);
 the registered `Breakout-v0` id observes 4 stacked 84×84 renders of
-`scene()` instead. The CUDA body in csrc/megastep.cu repeats `step`.
+`scene()` instead. The CUDA body in csrc/megastep.cu repeats `step` and
+`reset`.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ when the ball passes the opponent and -1 when it passes the agent.
 Coordinates are the rasteriser's [0, 1]², x rightward, y downward. The
 observation is the state vector; the registered `Pong-v0` id observes 4
 stacked 84×84 renders of `scene()` instead. The CUDA body in
-csrc/megastep.cu repeats `step`.
+csrc/megastep.cu repeats `step` and `reset`.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ last column stay clear, so the up-across-down route always exists. A step
 into the cliff sends the agent back to the start with reward -100 and the
 episode goes on; every other step pays -1, and only the goal ends it. The
 observation is the cell-code grid, `MultiDiscrete`: 0 free, 1 cliff, 2
-goal, 3 agent. The CUDA body in csrc/megastep.cu repeats `step`.
+goal, 3 agent. The CUDA body in csrc/megastep.cu repeats `step` and
+`reset`.
 """
 from __future__ import annotations
 

@@ -4,10 +4,11 @@
 Every grid game draws its level (holes, cliff or walls, goal, food
 priorities) inside `reset`, from the lane's key, so the AutoReset key chain
 makes a new level at every episode boundary on the device, and the fused
-path, which precomputes the fresh resets with the same calls, makes the
-same levels. Levels are solvable by construction: `carve_path` marks a
-random monotone lattice path from the start to the goal, and no obstacle is
-placed on it.
+path makes the same levels: the CUDA megastep draws them in-kernel from the
+same key chain (csrc/megastep.cu repeats `reset` and `carve_path`), its
+plain twin precomputes them with these calls. Levels are solvable by
+construction: `carve_path` marks a random monotone lattice path from the
+start to the goal, and no obstacle is placed on it.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ Gym's FrozenLake without slip: each `reset` draws a hole field (density
 `HOLE_P`) and carves a random monotone path from the start to the goal, so
 every level is solvable. The observation is the whole cell-code grid as a
 `MultiDiscrete` vector: 0 frozen, 1 hole, 2 goal, 3 agent. The CUDA body in
-csrc/megastep.cu repeats `step`.
+csrc/megastep.cu repeats `step` and `reset`.
 """
 from __future__ import annotations
 

@@ -5,9 +5,10 @@ constants copied).
 Each `reset` draws a wall layout and a goal cell from the far half of the
 board, then carves a random monotone path from the start to the goal, so
 every level is solvable. A move into a wall or off the board leaves the
-agent in place. Reaching the goal ends the episode with +1; every other step
-pays 0. The observation is the cell-code grid, `MultiDiscrete`: 0 free, 1
-wall, 2 goal, 3 agent. The CUDA body in csrc/megastep.cu repeats `step`.
+agent in place. Reaching the goal ends the episode with +1; every other
+step pays 0. The observation is the cell-code grid, `MultiDiscrete`: 0
+free, 1 wall, 2 goal, 3 agent. The CUDA body in csrc/megastep.cu repeats
+`step` and `reset`.
 """
 from __future__ import annotations
 

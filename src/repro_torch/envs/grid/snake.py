@@ -8,7 +8,7 @@ per-cell priority field `prio`, and the k-th food appears at the free cell
 that minimises frac(prio + k·φ). Rewards: +1 eat, -1 death (wall or body),
 0 otherwise; the episode also ends when the body fills the board. The
 observation is the cell-code grid, `MultiDiscrete`: 0 empty, 1 body, 2
-head, 3 food. The CUDA body in csrc/megastep.cu repeats `step`.
+head, 3 food. The CUDA body in csrc/megastep.cu repeats `step` and `reset`.
 """
 from __future__ import annotations
 

@@ -5,8 +5,8 @@ LightsOut on an N×N board: pressing a cell toggles it and its von Neumann
 neighbours, and the episode ends when every light is off. `reset` scrambles
 a solved board with random presses, so every board is solvable, and
 `solve()` is the heuristic solver the paper ships with its puzzles: a
-host-side GF(2) elimination that returns an optimal press set. The CUDA body
-in csrc/megastep.cu repeats `step`.
+host-side GF(2) elimination that returns an optimal press set. The CUDA
+body in csrc/megastep.cu repeats `step` and `reset`.
 """
 from __future__ import annotations
 

@@ -1,26 +1,31 @@
 """Public megastep API: backend dispatch + the wrapper-stack adapter
 (port of `repro.kernels.envstep.ops`).
 
-`env_megastep` is the row-level op: "cuda" launches the kernel, "torch"
-runs the plain version, "auto" picks the kernel for CUDA tensors and the
-plain version for CPU tensors. Nothing falls back: a CUDA tensor given to
-"cuda" or "auto" launches the kernel or raises.
+`env_megastep` is the row-level op over the state rows and the lanes'
+auto-reset keys: "cuda" launches the kernel, which splits each lane's key
+every step and runs the env's reset where an episode ends; "torch" runs its
+plain twin, `fresh_rows` (the same `split` + `reset` sequence
+`AutoReset.step` makes every step, precomputed for the K steps) and then
+`megastep_ref`; "auto" picks the kernel for CUDA tensors and the plain twin
+for CPU tensors. Nothing falls back: a CUDA tensor given to "cuda" or
+"auto" launches the kernel or raises, also where the kernel's compiled
+body does not fit the instance (`FusedSpec.kernel_mismatch`).
 
 `fused_step` is what `Env.fused_step` and the pool call. It takes the
-batched `AutoResetState` that `Vec(AutoReset(env))` carries, precomputes the
-auto-reset key chain and the K fresh reset states with the same `split` +
-`reset` sequence `AutoReset.step` makes every step (so the threefry stream
-matches the per-step path bit for bit), flattens the state to rows, runs
-the megastep and rebuilds the state. Which parts of the stack fuse is read
-off the declared pipeline (`_plan`).
+batched `AutoResetState` that `Vec(AutoReset(env))` carries, flattens the
+state to rows, runs the megastep with the state's keys (so the threefry
+stream matches the per-step path bit for bit) and rebuilds the state.
+Which parts of the stack fuse is read off the declared pipeline (`_plan`).
 
 Pixel stacks (`FrameStack(ObsToPixels(core))`, `ObsToPixels(core)`, the
 arcade ids) fuse too when the core's obs rows are its state rows
 (`FusedSpec.obs_is_state`): the kernel advances the game logic for the
 whole K-step chunk, then the chunk's frames are rasterised outside it, in
-two batched launches over the K·B stepped and the K·B fresh scenes, and a
-K-step select loop rebuilds the frame stack. That renders what the
-per-step path renders: one stepped and one fresh frame per lane and step.
+two batched launches over the K·B stepped scenes (`terminal_obs` rows) and
+the K·B post-reset scenes (`obs` rows, the fresh state's where a lane
+reset), and a K-step select loop rebuilds the frame stack. That renders
+what the per-step path renders: one stepped and one fresh frame per lane
+and step.
 """
 from __future__ import annotations
 
@@ -37,21 +42,29 @@ from repro_torch.kernels.envstep.specs import lookup
 BACKENDS = ("auto", "cuda", "torch")
 
 
-def env_megastep(spec, state, actions, fresh, fresh_obs, *,
+def env_megastep(spec, state, keys, actions, *, core,
                  max_steps: Optional[int] = None, backend: str = "auto"):
     """Row-level K-step fused op with backend dispatch (see the module doc).
 
     `spec` is the env's `FusedSpec`: its `kernel_id` picks the CUDA body,
-    its `step_rows` drives the plain version.
+    its `step_rows` drives the plain version. state (S', B) and actions
+    (K, B) float32, keys (B, 2) the lanes' auto-reset keys. `core` is the
+    `TimeLimit(base)` or base env of the rows, whose `reset` the plain
+    branch runs. Returns (new_state (S', B), final_keys (B, 2), obs,
+    terminal_obs (K, O, B), reward, done, truncated (K, B)).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
     if backend == "cuda" or (backend == "auto" and state.is_cuda):
-        return megastep_cuda(spec.kernel_id, state, actions, fresh, fresh_obs,
+        if spec.kernel_mismatch is not None:
+            raise NotImplementedError(spec.kernel_mismatch)
+        return megastep_cuda(spec.kernel_id, state, keys, actions,
                              max_steps=max_steps)
-    return megastep_ref(spec.step_rows, state, actions, fresh, fresh_obs,
-                        max_steps=max_steps)
+    final_keys, fresh, fresh_obs = fresh_rows(core, keys, actions.shape[0])
+    new_state, *out = megastep_ref(spec.step_rows, state, actions, fresh,
+                                   fresh_obs, max_steps=max_steps)
+    return (new_state, final_keys, *out)
 
 
 def _plan(env):
@@ -105,6 +118,13 @@ def supports(env) -> bool:
     return _resolve(env) is not None
 
 
+def kernel_mismatch(env) -> Optional[str]:
+    """Why the CUDA megastep's compiled body does not fit the fusable stack
+    `env` (`FusedSpec.kernel_mismatch`), or None."""
+    found = _resolve(env)
+    return None if found is None else found[1].kernel_mismatch
+
+
 def state_rows(spec, max_steps, wrapped):
     """A (TimeLimit-wrapped) state as megastep rows (..., S', B); the step
     counter is the last row when there is a TimeLimit."""
@@ -115,7 +135,9 @@ def state_rows(spec, max_steps, wrapped):
 
 
 def fresh_rows(env, keys: torch.Tensor, num_steps: int):
-    """The auto-reset key chain and fresh reset rows for `num_steps` steps.
+    """The auto-reset key chain and fresh reset rows for `num_steps` steps:
+    the plain branch of `env_megastep`, and the oracle of the kernel's
+    in-kernel resets.
 
     Per step, `split(key)` gives the next chain key and a reset key, as in
     `AutoReset.step`. The chain is sequential; the K resets are one batched
@@ -125,6 +147,7 @@ def fresh_rows(env, keys: torch.Tensor, num_steps: int):
     (B, 2), fresh_rows (K, S', B), fresh_obs_rows (K, O, B)), the rows
     contiguous float32, as the megastep takes them.
     """
+    fresh_rows.calls += 1
     env, spec, max_steps = _resolve(env)[:3]
     reset_keys = []
     for _ in range(num_steps):
@@ -134,6 +157,11 @@ def fresh_rows(env, keys: torch.Tensor, num_steps: int):
     fresh_states, fresh_obs = env.reset(torch.stack(reset_keys))
     return (keys, state_rows(spec, max_steps, fresh_states).contiguous(),
             fresh_obs.transpose(-1, -2).to(torch.float32).contiguous())
+
+
+#: calls since the count was last set to 0: chip_smoke.py shows that no
+#: chunk of the CUDA path makes one
+fresh_rows.calls = 0
 
 
 def _render_obs_rows(core, spec, obs_rows, backend):
@@ -149,11 +177,12 @@ def _render_obs_rows(core, spec, obs_rows, backend):
                         *base.frame_shape, backend=backend)
 
 
-def _stack_frames(frames, pre, fresh, done):
+def _stack_frames(frames, pre, post, done):
     """The frame-stack ring over K steps, as K `FrameStack.step`s under
-    `AutoReset` give it: frames (B, N, H, W) most recent last, pre and
-    fresh (K, B, H, W), done (K, B). Returns (obs, terminal_obs)
-    (K, B, N, H, W)."""
+    `AutoReset` give it: frames (B, N, H, W) most recent last, pre and post
+    (K, B, H, W) the frames of the terminal_obs and obs rows (post is the
+    fresh frame where a lane reset), done (K, B). Returns (obs,
+    terminal_obs) (K, B, N, H, W)."""
     k = pre.shape[0]
     tobs = torch.empty((k,) + tuple(frames.shape), dtype=frames.dtype,
                        device=frames.device)
@@ -161,7 +190,7 @@ def _stack_frames(frames, pre, fresh, done):
     for t in range(k):
         tobs[t, :, :-1] = frames[:, 1:]
         tobs[t, :, -1] = pre[t]
-        torch.where(done[t, :, None, None, None], fresh[t, :, None], tobs[t],
+        torch.where(done[t, :, None, None, None], post[t, :, None], tobs[t],
                     out=obs[t])
         frames = obs[t]
     return obs, tobs
@@ -208,12 +237,12 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
     if num_steps is not None and num_steps != k:
         raise ValueError(f"num_steps={num_steps} != actions.shape[0]={k}")
 
-    final_keys, fresh, fobs = fresh_rows(core, state.key, k)
     core_state = state.inner.inner if num_stack is not None else state.inner
     rows = state_rows(spec, max_steps, core_state).contiguous()
-    new_rows, obs, tobs, reward, done, trunc = env_megastep(
-        spec, rows, acts.to(torch.float32).contiguous(), fresh, fobs,
-        max_steps=max_steps, backend=backend)
+    new_rows, final_keys, obs, tobs, reward, done, trunc = env_megastep(
+        spec, rows, state.key.contiguous(),
+        acts.to(torch.float32).contiguous(), core=core, max_steps=max_steps,
+        backend=backend)
 
     inner = spec.unflatten(new_rows[:spec.state_size])
     done = done.to(torch.bool)
@@ -231,17 +260,15 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
                                    obs=obs.transpose(-1, -2).to(odt),
                                    reward=reward, done=done, info=info)
 
-    # Pixel pipeline: the chunk's stepped (pre-reset) and fresh frames in
-    # two batched raster launches, then the auto-reset select and, under a
-    # FrameStack, the ring, step by step.
+    # Pixel pipeline: the chunk's stepped (pre-reset) and post-reset frames
+    # in two batched raster launches (the obs rows are the fresh state's
+    # where a lane reset), then, under a FrameStack, the ring, step by step.
     pre = _render_obs_rows(core, spec, tobs, backend)        # (K, B, H, W)
-    fresh_px = _render_obs_rows(core, spec, fobs, backend)
+    post = _render_obs_rows(core, spec, obs, backend)
     if num_stack is None:
-        obs_px = torch.where(done[..., None, None], fresh_px, pre)
-        tobs_px = pre
+        obs_px, tobs_px = post, pre
     else:
-        obs_px, tobs_px = _stack_frames(state.inner.frames, pre, fresh_px,
-                                        done)
+        obs_px, tobs_px = _stack_frames(state.inner.frames, pre, post, done)
         # a copy, so the state does not hold the chunk's obs alive
         inner = FrameStackState(inner, obs_px[-1].clone())
     info["terminal_obs"] = tobs_px
@@ -251,4 +278,4 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
 
 
 __all__ = ["BACKENDS", "env_megastep", "fresh_rows", "fused_step",
-           "state_rows", "supports"]
+           "kernel_mismatch", "state_rows", "supports"]

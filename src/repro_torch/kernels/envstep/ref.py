@@ -2,8 +2,11 @@
 `repro.kernels.envstep.ref` and of `megastep.py::fused_transition`).
 
 Same row-major layout and step order as csrc/megastep.cu, written as a
-Python loop over the K steps. The CPU path of every fused pool, and what
-the kernel is held against on the card (chip_smoke.py).
+Python loop over the K steps, over fresh reset rows precomputed for the K
+steps, as the TPU kernel takes them; the CUDA kernel computes those resets
+itself from the lanes' keys. After `ops.fresh_rows`, it is the CPU path of
+every fused pool and what the kernel is held against on the card
+(chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ def fused_transition(step_rows: Callable, rows, act, fresh, fresh_obs,
 
 def megastep_ref(step_rows: Callable, state, actions, fresh, fresh_obs, *,
                  max_steps: Optional[int] = None):
-    """K fused steps; same contract as `megastep_cuda`.
+    """K fused steps over precomputed resets: `megastep_cuda`'s outputs
+    but its final keys, which `ops.fresh_rows` gives beside `fresh`.
 
     state (S', B), actions (K, B), fresh (K, S', B), fresh_obs (K, O, B).
     Returns (new_state (S', B), obs (K, O, B), terminal_obs (K, O, B),

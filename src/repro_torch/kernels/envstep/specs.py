@@ -9,6 +9,13 @@ batch-native, so `step_rows` is the env's own `step` seen through that
 layout; the JAX package writes it out by hand only because its envs step a
 single lane. `kernel_id` picks the same dynamics' body in csrc/megastep.cu.
 
+`kernel_mismatch` names the instance's parameters that differ from those
+the CUDA body compiles in (`megastep.Body.params`: the grid sizes and
+LightsOut's scramble presses), or is None. Such an instance still fuses
+through the plain version, which steps the instance's own geometry, but the
+kernel path is not offered: `make_vec(backend="auto")` on the card picks
+"vmap", and the "cuda" backend raises.
+
 `obs_is_state` says that the observation is the flattened state, declared
 per env as in the JAX package; it lets the pixel pipeline render every
 step's frame from the kernel's obs rows (ops.py::fused_step). The grid
@@ -50,6 +57,8 @@ class FusedSpec(NamedTuple):
     # obs rows == state rows (obs = flattened base state): pixel stacks over
     # an env with a `scene()` then fuse too
     obs_is_state: bool = False
+    # why the CUDA body does not fit this instance, or None
+    kernel_mismatch: Optional[str] = None
 
 
 def derive_layout(env, field_order: Optional[Tuple[str, ...]] = None):
@@ -134,15 +143,22 @@ def spec_for(env) -> Optional[FusedSpec]:
     spec = None
     fusion = _fused_classes().get(type(env))
     if fusion is not None:
-        body = BODIES[type(env).__name__]
+        name = type(env).__name__
+        body = BODIES[name]
         state_size, obs_size, flatten, unflatten = derive_layout(
             env, fusion.field_order)
-        if (state_size, obs_size) != (body.state_size, body.obs_size):
-            raise RuntimeError(f"{type(env).__name__}: layout "
-                               f"{(state_size, obs_size)} != kernel body {body}")
-        spec = FusedSpec(type(env).__name__, state_size, obs_size, flatten,
-                         unflatten, _rows_of(env, flatten, unflatten),
-                         body.kernel_id, fusion.obs_is_state)
+        compiled = dict(body.params)
+        given = {p: getattr(env, p) for p in compiled}
+        mismatch = None
+        if given != compiled:
+            mismatch = (f"{name} with {given}: the CUDA megastep body is "
+                        f"compiled for {compiled} only")
+        elif (state_size, obs_size) != (body.state_size, body.obs_size):
+            raise RuntimeError(f"{name}: layout {(state_size, obs_size)} != "
+                               f"kernel body {body}")
+        spec = FusedSpec(name, state_size, obs_size, flatten, unflatten,
+                         _rows_of(env, flatten, unflatten), body.kernel_id,
+                         fusion.obs_is_state, mismatch)
     _SPEC_CACHE[env] = spec
     return spec
 

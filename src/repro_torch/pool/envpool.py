@@ -33,6 +33,7 @@ from repro_torch.core.registry import make as registry_make
 from repro_torch.core.spaces import sample_batch
 from repro_torch.core.wrappers import AutoReset, Vec
 from repro_torch.device import resolve_device
+from repro_torch.kernels.envstep.ops import kernel_mismatch
 
 #: megastep backends: the CUDA kernel, or its plain PyTorch version
 FUSED_BACKENDS = ("cuda", "torch")
@@ -111,6 +112,9 @@ class EnvPool:
                 raise ValueError(f"backend={backend!r} needs a fused megastep "
                                  f"spec, and {env.name} has none; use "
                                  "backend='vmap'")
+            why = kernel_mismatch(env) if backend == "cuda" else None
+            if why is not None:
+                raise NotImplementedError(why)
             if backend == "cuda" and self.device.type != "cuda":
                 raise ValueError("backend='cuda' runs the CUDA kernel and "
                                  f"needs a CUDA device, not {self.device}")

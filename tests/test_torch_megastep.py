@@ -7,8 +7,10 @@ Snake) with and without a TimeLimit, at B = 200 (not a multiple of the
 tests/test_torch_grid.py::grid_rows: agents beside holes, cliffs and goals,
 snakes beside food, walls and their own body, boards a move from a win.
 
-The CUDA kernel itself is held against this plain version on the card by
-chip_smoke.py. Here: the dispatch, and that a CPU tensor never reaches it.
+The CUDA kernel itself is held against this plain version (after
+`fresh_rows`, which makes the resets the kernel makes in-kernel) on the
+card by chip_smoke.py. Here: the dispatch, and that a CPU tensor never
+reaches it.
 """
 import math
 
@@ -27,9 +29,11 @@ from repro.envs.puzzle import LightsOut as JLightsOut
 from repro.kernels.envstep import megastep_pallas
 from repro.kernels.envstep import megastep_ref as jax_megastep_ref
 from repro.kernels.envstep import spec_for as jax_spec_for
+from repro_torch import random as R
+from repro_torch.core.wrappers import TimeLimit
 from repro_torch.envs.puzzle import LightsOut as TLightsOut
-from repro_torch.kernels.envstep import (env_megastep, megastep_cuda,
-                                         megastep_ref, spec_for)
+from repro_torch.kernels.envstep import (env_megastep, fresh_rows,
+                                         megastep_cuda, megastep_ref, spec_for)
 from test_torch_grid import grid_rows
 
 B, K = 200, 8
@@ -166,16 +170,27 @@ def test_megastep_ref_matches_pallas_interpret(name, time_limit):
 
 
 def test_dispatch_on_cpu_tensors():
-    """"auto" takes the plain version for CPU tensors; "cuda" raises."""
-    spec = spec_for(TC.CartPole())
-    ops = [torch.from_numpy(x) for x in _inputs("CartPole", True)]
-    want = megastep_ref(spec.step_rows, *ops, max_steps=500)
-    got = env_megastep(spec, *ops, max_steps=500, backend="auto")
+    """"auto" takes the plain version for CPU tensors (the auto-reset key
+    chain and fresh rows of `fresh_rows`, then `megastep_ref`); "cuda"
+    raises."""
+    core = TimeLimit(TC.CartPole(), 500)
+    spec = spec_for(core.env)
+    state, act = (torch.from_numpy(x) for x in _inputs("CartPole", True)[:2])
+    keys = R.split(R.PRNGKey(5, "cpu"), B)
+    final_keys, fresh, fresh_obs = fresh_rows(core, keys, K)
+    want = (megastep_ref(spec.step_rows, state, act, fresh, fresh_obs,
+                         max_steps=500))
+    want = (want[0], final_keys, *want[1:])
+    got = env_megastep(spec, state, keys, act, core=core, max_steps=500,
+                       backend="auto")
+    assert len(got) == len(want) == 7
     for w, g in zip(want, got):
         assert torch.equal(w, g)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        env_megastep(spec, *ops, max_steps=500, backend="cuda")
+        env_megastep(spec, state, keys, act, core=core, max_steps=500,
+                     backend="cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        megastep_cuda(spec.kernel_id, *ops, max_steps=500)
+        megastep_cuda(spec.kernel_id, state, keys, act, max_steps=500)
     with pytest.raises(ValueError, match="unknown backend"):
-        env_megastep(spec, *ops, max_steps=500, backend="pallas")
+        env_megastep(spec, state, keys, act, core=core, max_steps=500,
+                     backend="pallas")
