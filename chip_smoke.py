@@ -66,6 +66,20 @@ repository around it. Phases, each printing one JSON line with its seconds:
   parity   64-step rollouts, backend "cuda" against "torch", on the card,
            and a pixel chunk's frames
   golden   the 28 committed tests/golden traces, replayed on the card
+  train    DQN through the port's learner (rl/dqn.py): the megastep against
+           its plain twin at the learner's widths (B = 1, 2, 4; CartPole,
+           FrozenLake, Pong; K = 1 and reset-heavy); the two committed
+           training goldens (tests/golden/train_dqn_*.json) through
+           train_compiled on the megastep, 64 launches each; Table I on
+           CartPole-v1 (PAPER_TABLE_I, learn_start 100, B = 1) for 2,000
+           steps, every step after the first with host syncs made errors:
+           seconds, transitions/s, median ms a step by CUDA events, and
+           the step's layers timed alone; train_host on the interpreted
+           CartPole for 500 steps; the pixel CNN on Pong-v0 (B = 4, batch
+           32, a 50,000-transition ring: 11.29 GB) for 300 steps with
+           megastep and raster launch counts and peak memory; the CNN on
+           the card against the CPU at 1e-5 under cuDNN's TF32 default;
+           greedy returns of the Table I params
   numbers  env steps/s per id: classic and grid at B = 65,536 (CartPole-v1
            also at B = 4,096), Pong-v0 and Breakout-v0 at B = 4,096, K = 8,
            Multitask-v0 at B = 65,536, Maze-px and FrozenLake-px at 4,096
@@ -78,6 +92,9 @@ repository around it. Phases, each printing one JSON line with its seconds:
   split    Pong-v0 and Breakout-v0: both kernels against their plain
            versions on a real chunk, then per-chunk times of the two raster
            launches, the frame-stack select and the sampling
+  train_profile  a torch.profiler window over 10 Table I steps carried on
+           from phase train: wall and device-busy ms a step, idle share,
+           launches a step
   lm_profile  a torch.profiler window over Yi-6B's decode ticks and one
            2,048-token prefill: wall and device-busy ms, idle share, the
            costliest kernels (last, since a profiler slows the launches
@@ -973,6 +990,274 @@ def phase_golden(device):
           "backends": backends, "max_abs_err": worst})
 
 
+# -- training: DQN, the paper's learner (Table I, Fig. 2) ----------------------
+
+TRAIN_GOLDEN_IDS = ("dqn/CartPole-v1", "dqn/FrozenLake-v0")
+#: src/repro/train/fused.py::golden_train_setup's DQN recipe
+TRAIN_GOLDEN_CFG = dict(num_envs=2, memory_size=96, learn_start=16,
+                        batch_size=8, exploration_steps=48,
+                        target_update_freq=13)
+TRAIN_GOLDEN_STEPS = 64
+TRAIN_GOLDEN_EXACT = ("final_key", "replay_ptr", "replay_size",
+                      "replay_done_sum")
+#: benchmarks/fig2_dqn_training.py: `_cfg()` and run()'s default budget
+TABLE_I_STEPS = 2000
+HOST_STEPS = 500
+#: the pixel CNN of tests/test_arcade.py's Pong-v0 test at Table I's memory
+#: and batch: the ring holds 2 × 50,000 frame stacks of 4×84×84 f32
+PONG_CFG = dict(network="cnn", memory_size=50_000, batch_size=32,
+                num_envs=4, learn_start=100)
+PONG_STEPS = 300
+CNN_TOL = 1e-5
+GREEDY_EPISODES = 8
+#: the learner's pool widths: Table I (1), the goldens (2), TUNED (4)
+LEARNER_WIDTHS = (1, 2, 4)
+TRAIN_PROFILE_STEPS = 10
+RANGE_COST_CALLS = 10_000
+
+
+def learner_width_check(torch, device):
+    """The megastep at the learner's widths against its plain twin: the
+    bodies the training paths run (CartPole, FrozenLake, Pong), B = 1, 2,
+    4, a K = 1 chunk (a training step's) under the env's TimeLimit and a
+    reset-heavy K = 32 one under a TimeLimit of 3."""
+    from repro_torch.core.wrappers import TimeLimit
+    from repro_torch.kernels.envstep import BODIES, megastep_cuda
+    from repro_torch.kernels.envstep.specs import spec_for
+
+    envs, worst, cases = _envs(), 0.0, []
+    with uncounted():
+        for i, name in enumerate(("CartPole", "FrozenLake", "Pong")):
+            env = envs[name]
+            spec = spec_for(env)
+            exact = EXACT_ALL if name in GRID else (
+                ("reward", "done", "truncated") if name in KERNEL_K
+                else ("done", "truncated"))
+            inputs = grid_kernel_inputs if name in GRID else kernel_inputs
+            for b in LEARNER_WIDTHS:
+                for max_steps, k in ((MAX_STEPS[name], 1),
+                                     (HEAVY_MAX_STEPS, K)):
+                    ops = inputs(torch, name, max_steps, b, k, 100 + i,
+                                 device)
+                    got = megastep_cuda(BODIES[name].kernel_id, *ops,
+                                        max_steps=max_steps)
+                    want = plain_megastep(TimeLimit(env, max_steps), spec,
+                                          ops, max_steps)
+                    err = compare(torch, got, want, f"{name} B={b} K={k} "
+                                  f"max_steps={max_steps}", exact)
+                    worst = max(worst, err)
+                    cases.append({"body": name, "B": b, "K": k,
+                                  "max_steps": max_steps, "max_abs_err": err,
+                                  "resets": int(got[5].sum())})
+    return worst, cases
+
+
+def run_training(torch, env, cfg, steps, seed, device):
+    """`steps` steps of `make_train_step` from `dqn_init`, every step after
+    the first with host syncs made errors, a CUDA event after each step.
+    Returns (state, apply_fn, losses (steps,), seconds, device ms per step,
+    launches)."""
+    from repro_torch import random as R
+    from repro_torch.rl import dqn
+
+    state, apply_fn = dqn.dqn_init(env, cfg, R.PRNGKey(seed, device),
+                                   device=device)
+    step_fn = dqn.make_train_step(env, apply_fn, cfg, device)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    events[0].record()
+    try:
+        for i in range(steps):
+            if i == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            state, metrics = step_fn(state)
+            losses.append(metrics["loss"])
+            events[i + 1].record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    return state, apply_fn, torch.stack(losses), seconds, step_ms, counts
+
+
+def phase_train(torch, device):
+    """DQN through the port's learner on the card: the megastep at the
+    learner's widths, the two training goldens, Table I on CartPole-v1, train_host on the interpreted
+    CartPole, the pixel CNN on Pong-v0 at Table I's memory, the CNN on the
+    card against the CPU under PyTorch's TF32 default, greedy returns."""
+    import dataclasses
+
+    import numpy as np
+    from torch.utils._pytree import tree_map
+
+    import repro_torch
+    from repro_torch import random as R
+    from repro_torch.configs.cairl_dqn import PAPER_TABLE_I
+    from repro_torch.envs.baseline_python import CartPolePy
+    from repro_torch.rl import dqn
+
+    t0 = time.perf_counter()
+    out = {"phase": "train"}
+    mega_err, out["learner_widths"] = learner_width_check(torch, device)
+
+    # 1. the committed training goldens, through train_compiled on "cuda"
+    goldens = {}
+    for gid in TRAIN_GOLDEN_IDS:
+        want = json.loads((ROOT / "tests" / "golden" /
+                           f"train_{gid.replace('/', '_')}.json").read_text())
+        env = repro_torch.make(gid.split("/")[1])
+        cfg = dqn.DQNConfig(**TRAIN_GOLDEN_CFG, env_backend="cuda")
+        reset_counts()
+        state, apply_fn, _ = dqn.train_compiled(
+            env, cfg, TRAIN_GOLDEN_STEPS, R.PRNGKey(sum(map(ord, gid)),
+                                                    device), device=device)
+        counts = read_counts()
+        if counts["megastep"] != TRAIN_GOLDEN_STEPS:
+            raise AssertionError(f"{gid}: {counts['megastep']} megastep "
+                                 f"launches in {TRAIN_GOLDEN_STEPS} steps")
+        got = dqn.golden_checksums(env, state, apply_fn)
+        for k in TRAIN_GOLDEN_EXACT:
+            if got[k] != want[k]:
+                raise AssertionError(f"{gid}.{k}: {got[k]} != {want[k]}")
+        floats = [k for k, v in want.items() if isinstance(v, float)]
+        for k in floats:
+            np.testing.assert_allclose(got[k], want[k], rtol=GOLDEN_TOL,
+                                       atol=GOLDEN_TOL, err_msg=f"{gid}.{k}")
+        goldens[gid] = {"megastep_launches": counts["megastep"],
+                        "max_abs_err": max(abs(got[k] - want[k])
+                                           for k in floats)}
+    out["goldens"] = goldens
+
+    # 2. Table I on CartPole-v1 (fig2's compiled row), host syncs errors
+    env = repro_torch.make("CartPole-v1")
+    cfg = dataclasses.replace(PAPER_TABLE_I, num_envs=1, learn_start=100,
+                              env_backend="cuda")
+    state, apply_fn, loss, sec, step_ms, counts = run_training(
+        torch, env, cfg, TABLE_I_STEPS, 0, device)
+    if counts["megastep"] != TABLE_I_STEPS or counts["raster"]:
+        raise AssertionError(f"Table I: launches {counts}, want "
+                             f"{TABLE_I_STEPS} megastep, 0 raster")
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError("Table I: a loss is not finite")
+    greedy = dqn.greedy_returns(env, apply_fn, state.params,
+                                R.PRNGKey(123, device),
+                                episodes=GREEDY_EPISODES, device=device)
+    out["table_i"] = {
+        "id": "CartPole-v1", "steps": TABLE_I_STEPS, "B": 1,
+        "seconds": sec, "transitions_per_s": TABLE_I_STEPS / sec,
+        "step_ms_median": statistics.median(step_ms),
+        "step_ms_first": step_ms[0],
+        "clock": "CUDA events between steps (device timeline); seconds: "
+                 "host clock and a synchronize",
+        "launches": counts, "sync_free_after_step": 1,
+        "loss_finite": True, "loss_last": float(loss[-1]),
+        "greedy_returns": [float(x) for x in greedy]}
+    table_i = (env, cfg, state, apply_fn)
+
+    # 3. the Gym row's counterpart: the interpreted CartPole, one transition
+    # a call, the same learner on the card
+    t1 = time.perf_counter()
+    _, host_returns = dqn.train_host(CartPolePy, env, cfg, HOST_STEPS,
+                                     R.PRNGKey(0, device), device=device)
+    torch.cuda.synchronize()
+    out["train_host"] = {"steps": HOST_STEPS,
+                         "seconds": time.perf_counter() - t1,
+                         "episodes": len(host_returns)}
+
+    # 4. the pixel CNN on Pong-v0: Table I's 50,000-transition ring resident
+    pong = repro_torch.make("Pong-v0")
+    pcfg = dqn.DQNConfig(**PONG_CFG, env_backend="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pstate, papply, ploss, psec, pms, pcounts = run_training(
+        torch, pong, pcfg, PONG_STEPS, 0, device)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"megastep": PONG_STEPS, "raster": 2 * PONG_STEPS}
+    if {k: pcounts[k] for k in want} != want:
+        raise AssertionError(f"Pong-v0 CNN: launches {pcounts}, want {want}")
+    if not bool(torch.isfinite(ploss).all()):
+        raise AssertionError("Pong-v0 CNN: a loss is not finite")
+    ring = pstate.replay
+    ring_bytes = sum(x.numel() * x.element_size()
+                     for x in (ring.obs, ring.next_obs))
+    if ring_bytes != 2 * PONG_CFG["memory_size"] * 4 * 84 * 84 * 4:
+        raise AssertionError(f"Pong-v0 ring holds {ring_bytes} bytes")
+
+    # 5. cnn_apply on the card against the CPU, with cuDNN's TF32 default
+    # (True) restored: the port must pin float32 itself
+    x = ring.obs[:PONG_CFG["batch_size"]]
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = papply(pstate.params, x)
+        left_alone = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    want_q = papply(tree_map(lambda p: p.cpu(), pstate.params), x.cpu())
+    if not left_alone:
+        raise AssertionError("cnn_apply left cudnn.allow_tf32 switched off")
+    np.testing.assert_allclose(got.cpu().numpy(), want_q.numpy(),
+                               rtol=CNN_TOL, atol=CNN_TOL,
+                               err_msg="cnn_apply: card against CPU")
+    out["pong_cnn"] = {
+        "id": "Pong-v0", "steps": PONG_STEPS, "B": PONG_CFG["num_envs"],
+        "seconds": psec, "step_ms_median": statistics.median(pms),
+        "ms_per_step": 1e3 * psec / PONG_STEPS, "launches": pcounts,
+        "replay_device_bytes": ring_bytes,
+        "peak_bytes_above_start": peak - base, "loss_finite": True,
+        "ring_frames_nonzero": bool(ring.obs[:PONG_STEPS].sum() > 0),
+        "cnn_card_vs_cpu_max_abs_err": float((got.cpu() - want_q).abs().max()),
+        "cnn_tol": CNN_TOL, "cudnn_allow_tf32_during_check": True}
+    launches = {k: counts[k] + pcounts[k] for k in ("megastep", "raster")}
+    out.update(launches=launches, megastep_err=mega_err,
+               seconds=time.perf_counter() - t0)
+    del pstate, ring, x
+    torch.cuda.empty_cache()
+    emit(out)
+    return launches, mega_err, table_i
+
+
+def phase_train_profile(torch, table_i):
+    """torch.profiler over TRAIN_PROFILE_STEPS Table I steps carried on
+    from phase train: wall and device-busy ms a step, idle share, launches
+    a step, and each layer of the step read from its `dqn.STAGES` range
+    (near the end: a profiler slows what follows it). Also what a range
+    costs the step when no profiler runs."""
+    from torch.profiler import record_function
+
+    from repro_torch.rl import dqn
+
+    env, cfg, state, apply_fn = table_i
+    step_fn = dqn.make_train_step(env, apply_fn, cfg, state.step.device)
+    carry = [state]
+
+    def step():
+        carry[0] = step_fn(carry[0])[0]
+
+    t0 = time.perf_counter()
+    with uncounted():
+        out = profile_window(torch, step, TRAIN_PROFILE_STEPS, dqn.STAGES)
+    layers = out["ranges_ms"]
+    out["outside_ranges_host_ms"] = out["wall_ms"] - sum(
+        r["host_ms"] for r in layers.values())
+    t1 = time.perf_counter()
+    for _ in range(RANGE_COST_CALLS):
+        with record_function(dqn.STAGES[0]):
+            pass
+    out["range_cost_us_profiler_off"] = (
+        1e6 * (time.perf_counter() - t1) / RANGE_COST_CALLS)
+    out["ranges_per_step"] = len(dqn.STAGES)
+    emit({"phase": "train_profile", "seconds": time.perf_counter() - t0,
+          "steps": TRAIN_PROFILE_STEPS, **out})
+    return out
+
+
 def phase_numbers(device, pools, vmap_pools, sync):
     import repro_torch
     from repro_torch import random as R
@@ -1416,11 +1701,13 @@ def captured_attention(layers, backend="auto"):
         ops.attention = original
 
 
-def profile_window(torch, fn, n):
+def profile_window(torch, fn, n, ranges=()):
     """torch.profiler over n calls of fn (after one warm call): wall ms a
     call, device-busy ms a call (the sum of the kernels' device time), the
     idle share, and the five costliest kernels. Device fields are None
-    when the trace holds no device time."""
+    when the trace holds no device time. For each name in `ranges` (the
+    `record_function` ranges inside fn), its host ms a call and the device
+    ms of the kernels launched inside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1432,18 +1719,28 @@ def profile_window(torch, fn, n):
             fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / n
-    # kernel rows only: an op's row repeats its kernels' device time
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # kernel rows only: an op's row repeats its kernels' device time, and so
+    # does a range's device-side row
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key not in ranges]
     rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in kernels]
     busy = sum(ms for _, ms in rows)
     top = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:5]
-    return {"calls": n, "wall_ms": wall,
-            "kernel_launches": sum(e.count for e in kernels) / n,
-            "device_busy_ms": busy if busy > 0 else None,
-            "idle_share": 1 - busy / wall if busy > 0 else None,
-            "top_kernels_ms": top,
-            "clock": "host clock around the window (profiler on); device "
-                     "time from the trace"}
+    out = {"calls": n, "wall_ms": wall,
+           "kernel_launches": sum(e.count for e in kernels) / n,
+           "device_busy_ms": busy if busy > 0 else None,
+           "idle_share": 1 - busy / wall if busy > 0 else None,
+           "top_kernels_ms": top,
+           "clock": "host clock around the window (profiler on); device "
+                    "time from the trace"}
+    if ranges:
+        layers = {name: {"host_ms": 0.0, "device_ms": 0.0} for name in ranges}
+        for e in prof.events():
+            if e.name in layers and e.device_type == DeviceType.CPU:
+                layers[e.name]["host_ms"] += e.cpu_time_total / 1e3 / n
+                layers[e.name]["device_ms"] += e.device_time_total / 1e3 / n
+        out["ranges_ms"] = layers
+    return out
 
 
 def decode_vs_forward(lm, cfg, params, toks, backend):
@@ -1754,6 +2051,8 @@ def main() -> int:
     del render_pools
     phase_parity(torch, device)
     phase_golden(device)
+    train_launches, train_err, table_i = phase_train(torch, device)
+    mega_err = max(mega_err, train_err)
     numbers = phase_numbers(device, pools, vmap_pools, sync)
     del vmap_pools
     bodies, bodies_err, memory = phase_bodies(torch, device, pools, sync,
@@ -1766,6 +2065,7 @@ def main() -> int:
         mega_err = max(mega_err, pixel[env_id]["megastep_err"])
         raster_err = max(raster_err, pixel[env_id]["raster_err"])
     del pools
+    phase_train_profile(torch, table_i)
     phase_lm_profile(torch, device)
 
     cartpole = bodies["CartPole"]
@@ -1775,7 +2075,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/megastep.cu",
         "replaces": "src/repro/kernels/envstep/megastep.py:80",
-        "launches": launches["megastep"],
+        "launches": launches["megastep"] + train_launches["megastep"],
+        "launches_per_path": {"env": launches["megastep"],
+                              "train": train_launches["megastep"]},
         "max_abs_err": mega_err,
         "ms": cartpole["ms"],
         "plain_ms": cartpole["plain_ms"],
@@ -1796,7 +2098,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/raster.cu",
         "replaces": "src/repro/kernels/raster/raster.py:57",
-        "launches": launches["raster"],
+        "launches": launches["raster"] + train_launches["raster"],
+        "launches_per_path": {"env": launches["raster"],
+                              "train": train_launches["raster"]},
         "max_abs_err": raster_err,
         "ms": pong["raster"]["ms"],
         "plain_ms": pong["raster"]["plain_ms"],

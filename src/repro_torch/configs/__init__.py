@@ -1,2 +1,2 @@
-"""configs subsystem: the model and shape configurations (copies of
-`repro.configs`, without `cairl_dqn`, which waits for the DQN port)."""
+"""configs subsystem: the model and shape configurations and the paper's
+DQN configuration (copies of `repro.configs`, without `input_specs`)."""

@@ -24,4 +24,16 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / x.new_full((), c)
 
 
-__all__ = ["div", "f32"]
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root on every device.
+
+    PyTorch's float32 `sqrt` on the CPU is off by an ulp or more in some
+    lanes (in some processes by far more), so there the root is taken in
+    float64 and rounded once, which is exact for a square root. The CUDA
+    `sqrtf` is IEEE already."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+__all__ = ["div", "f32", "sqrt"]

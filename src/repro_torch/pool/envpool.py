@@ -70,11 +70,17 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
 
 
 def _load_like(template, src, device):
-    """Rebuild `template`'s structure from `src`, read by field names only."""
+    """Rebuild `template`'s structure from `src`: NamedTuples read by field
+    names only, dicts by key, lists by position."""
     if isinstance(template, tuple):
         return type(template)(**{f: _load_like(getattr(template, f),
                                                getattr(src, f), device)
                                  for f in template._fields})
+    if isinstance(template, dict):
+        return {k: _load_like(v, src[k], device) for k, v in template.items()}
+    if isinstance(template, list):
+        return [_load_like(v, s, device) for v, s in zip(template, src,
+                                                          strict=True)]
     arr = np.array(src)
     if arr.shape != tuple(template.shape):
         raise ValueError(f"snapshot leaf has shape {arr.shape}, this pool "

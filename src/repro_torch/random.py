@@ -4,7 +4,8 @@ The committed golden traces (tests/golden/) and every parity test against
 the JAX package depend on the exact random stream, so this is a bit-exact
 port of JAX's *non-partitionable* threefry layout (`jax.random` under
 `jax.threefry_partitionable(False)`): `PRNGKey`, `split`, `fold_in`,
-`uniform`, `bernoulli` and `randint`.
+`uniform`, `bernoulli` and `randint`. `normal` draws the same uniforms and
+is within a few ulps of JAX's (see `erf_inv`).
 
 A key is an int64 tensor whose last axis holds the two uint32 words
 `(..., 2)`; any leading axes are a batch of independent keys, so one call
@@ -21,7 +22,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.numerics import f32
+from repro_torch.numerics import f32, sqrt
 
 KEY_DTYPE = torch.int64
 _MASK = 0xFFFFFFFF
@@ -122,6 +123,49 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (),
     return ((one_to_two - 1.0) * span + lo).clamp_min(lo)
 
 
+#: XLA's float32 ErfInv polynomial (chlo.erf_inv): 9 coefficients, highest
+#: power first, for w = -log1p(-x²) < 5 and for w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c in float32, rounded once, on every device: the float32
+    product is exact in float64, so only the sum rounds (and then to
+    float32, a double rounding that differs from a true FMA with odds of
+    about 2**-29)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 `ErfInv`, op by op (`jax.lax.erf_inv`), with its
+    Horner steps as FMAs, as XLA's CPU backend contracts them.
+
+    Not `torch.erfinv`, which is another approximation. `log1p` is
+    PyTorch's, which is not XLA's, so a few lanes differ from JAX by a few
+    ulps (tests/test_torch_random.py states the bound).
+    """
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, sqrt(w) - 3.0)
+    coeff = lambda i: torch.where(lt, f32(_ERFINV_LT5[i]), f32(_ERFINV_GE5[i]))
+    p = coeff(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma(p, w, coeff(i))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """`jax.random.normal` in float32: `sqrt(2) * erf_inv(u)` with u
+    uniform on [nextafter(-1, 0), 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return f32(math.sqrt(2.0)) * erf_inv(uniform(key, shape, lo, 1.0))
+
+
 def bernoulli(key: torch.Tensor, p: float = 0.5,
               shape: Sequence[int] = ()) -> torch.Tensor:
     """`jax.random.bernoulli` with a scalar `p`: `uniform(key, shape) < p`,
@@ -135,14 +179,18 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
 
     Two 32-bit draws per element from the two halves of `split(key)`,
     combined modulo the span in wrapping uint32 arithmetic. `maxval` is an
-    int, or a sequence of ints that broadcasts against the trailing axes of
-    `shape` (a `MultiDiscrete` space's `nvec`).
+    int, a sequence of ints that broadcasts against the trailing axes of
+    `shape` (a `MultiDiscrete` space's `nvec`), or an int32 tensor that
+    broadcasts so (the replay's `max(size, 1)`): its span is computed on
+    its device, so a tensor bound makes no host sync.
     """
     minval = int(minval)
     keys = split(key)
     higher = random_bits(keys[..., 0, :], shape)
     lower = random_bits(keys[..., 1, :], shape)
-    if isinstance(maxval, (int, np.integer)):
+    if isinstance(maxval, torch.Tensor):
+        span, multiplier = _span_tensor(minval, maxval.to(key.device))
+    elif isinstance(maxval, (int, np.integer)):
         span, multiplier = _span(minval, int(maxval))
     else:
         pairs = [_span(minval, int(m)) for m in maxval]
@@ -153,11 +201,26 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
 
 
 def _span(minval: int, maxval: int) -> Tuple[int, int]:
-    """randint's span (1 when the range is empty) and 2**32 mod span."""
+    """randint's span (1 when the range is empty) and its multiplier,
+    `(2**16 mod span)**2 mod span` with the square wrapped to 32 bits as
+    JAX's uint32 arithmetic wraps it: 0, not 2**32 mod span, for spans
+    above 2**16."""
     span = (maxval - minval) & _MASK if maxval > minval else 1
     multiplier = (2 ** 16) % span
-    return span, (multiplier * multiplier) % span
+    return span, ((multiplier * multiplier) & _MASK) % span
 
 
-__all__ = ["KEY_DTYPE", "PRNGKey", "bernoulli", "fold_in", "randint",
-           "random_bits", "split", "threefry_2x32", "uniform"]
+def _span_tensor(minval: int, maxval: torch.Tensor):
+    """`_span` of an int32 tensor `maxval`, on its device."""
+    if maxval.dtype != torch.int32:
+        raise ValueError(f"randint takes an int32 tensor maxval, not "
+                         f"{maxval.dtype}")
+    m = maxval.to(KEY_DTYPE)
+    span = torch.where(m > minval, (m - minval) & _MASK, 1)
+    multiplier = (2 ** 16) % span
+    return span, ((multiplier * multiplier) & _MASK) % span
+
+
+__all__ = ["KEY_DTYPE", "PRNGKey", "bernoulli", "erf_inv", "fold_in",
+           "normal", "randint", "random_bits", "split", "threefry_2x32",
+           "uniform"]

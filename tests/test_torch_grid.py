@@ -371,16 +371,28 @@ def test_fused_step_gives_cell_codes(name):
     assert ts.done.any()
 
 
+#: golden rows the `auto` case of a -px id replays (see below)
+PX_AUTO_ROWS = 3
+
+
 @pytest.mark.parametrize("backend", ("vmap", "auto"))
 @pytest.mark.parametrize("name", NEW_IDS)
 def test_goldens_through_make_vec(name, backend):
-    """tests/test_envspec.py::_pool_trace, through the port."""
+    """tests/test_envspec.py::_pool_trace, through the port.
+
+    For a -px id `auto` resolves to the very vmap pool of the `vmap` case,
+    which replays the whole trace; its `auto` case checks what only it can
+    show: the resolution, the reset and the first PX_AUTO_ROWS rows.
+    """
     want = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
     batch = want["batch"]
     pool = repro_torch.make_vec(name, batch, backend=backend, device="cpu")
     fused = backend == "auto" and name.split("-")[0] in FUSED and (
         not name.endswith("-px"))
     assert pool.backend == ("torch" if fused else "vmap")
+    steps = want["steps"]
+    if backend == "auto" and name.endswith("-px"):
+        steps = PX_AUTO_ROWS
     handle = pool.xla()
     key = R.PRNGKey(sum(map(ord, name)), "cpu")
     ps = handle.init(key)
@@ -389,12 +401,13 @@ def test_goldens_through_make_vec(name, backend):
     np.testing.assert_allclose(float(ps.obs.double().sum()),
                                want["reset_obs_sum"], rtol=1e-4, atol=1e-4)
     rows = []
-    for t in range(want["steps"]):
+    for t in range(steps):
         a = sample_batch(pool.action_space, R.fold_in(key, 1000 + t), batch)
         ps, out = handle.step(ps, a, R.fold_in(key, t))
         rows.append([float(out.obs.double().sum()),
                      float(out.reward.double().sum()), int(out.done.sum())])
-    np.testing.assert_allclose(np.asarray(rows), np.asarray(want["rows"]),
+    np.testing.assert_allclose(np.asarray(rows),
+                               np.asarray(want["rows"][:steps]),
                                rtol=1e-4, atol=1e-4,
                                err_msg=f"{name} ({backend}) left its golden")
 

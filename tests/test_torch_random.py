@@ -126,3 +126,63 @@ def test_uniform_ranges(bounds, n):
     # an FMA rounds the product once less: at most one ulp of the bounds
     ulp = np.spacing(np.float32(max(abs(lo), abs(hi))))
     np.testing.assert_allclose(got, want, rtol=0, atol=ulp)
+
+
+#: `normal` against `jax.random.normal`: the port's `erf_inv` is XLA's
+#: float32 polynomial with the Horner steps as FMAs, but its `log1p` is
+#: PyTorch's, so some lanes differ. Measured over 5 keys × 10^5 lanes
+#: (jax 0.9.0 CPU, torch 2.13.0 CPU): 0.89% to 0.99% of lanes differ, by at
+#: most 3 ulps. The bound is that maximum, and twice that share.
+NORMAL_MAX_ULPS = 3
+NORMAL_MAX_SHARE = 0.02
+
+
+def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Distance in float32 steps between same-signed finite values."""
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("shape", ((4096,), (3, 37), ()))
+def test_normal_within_stated_ulps(shape):
+    keys = _batched_keys(3)
+    with jax.threefry_partitionable(False):
+        want = np.asarray(jax.vmap(lambda k: jax.random.normal(k, shape))(keys))
+    got = R.normal(_t(keys), shape)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (3,) + shape
+    got = got.numpy()
+    assert np.all(np.sign(got) == np.sign(want))
+    ulps = _ulps(got, want)
+    assert ulps.max() <= NORMAL_MAX_ULPS, ulps.max()
+    assert (ulps > 0).mean() <= NORMAL_MAX_SHARE, (ulps > 0).mean()
+
+
+def test_erf_inv_tails_and_poles():
+    """Both branches of the polynomial (w < 5 and w >= 5) and the poles."""
+    x = np.float32([-1.0, -0.9999999, -0.99999, -0.9, -0.3, 0.0, 1e-8, 0.5,
+                    0.993, 0.99999, 0.9999999, 1.0])
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(x)))
+    got = R.erf_inv(torch.from_numpy(x)).numpy()
+    assert np.isinf(got[0]) and got[0] < 0 and np.isinf(got[-1]) and got[-1] > 0
+    np.testing.assert_allclose(got, want, rtol=NORMAL_MAX_ULPS * 2.0 ** -23,
+                               atol=0)
+
+
+@pytest.mark.parametrize("n", (1, 5, 32))
+@pytest.mark.parametrize("maxval", (0, 1, 2, 7, 96, 50_000, 2**31 - 1))
+def test_randint_tensor_maxval(n, maxval):
+    """A traced int32 bound (the replay's `max(size, 1)`) draws what JAX
+    draws for it, bit for bit, and so does the same bound as an int; 0 is
+    an empty range (always minval). Spans above 2**16 need JAX's wrapped
+    multiplier (0): an unwrapped 2**32 mod span drew other numbers."""
+    keys = _batched_keys()
+    with jax.threefry_partitionable(False):
+        bound = jnp.asarray(maxval, jnp.int32)
+        want = jax.vmap(lambda k: jax.random.randint(k, (n,), 0, bound))(keys)
+    got = R.randint(_t(keys), (n,), 0, torch.tensor(maxval, dtype=torch.int32))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(R.randint(_t(keys), (n,), 0, maxval).numpy(),
+                                  np.asarray(want))
+    with pytest.raises(ValueError, match="int32"):
+        R.randint(_t(keys), (n,), 0, torch.tensor(maxval, dtype=torch.int64))
