@@ -66,6 +66,14 @@ repository around it. Phases, each printing one JSON line with its seconds:
   parity   64-step rollouts, backend "cuda" against "torch", on the card,
            and a pixel chunk's frames
   golden   the 28 committed tests/golden traces, replayed on the card
+  compat   the drop-in surface: repro_torch.cairl.make("CartPole-v1") on the
+           card, one episode on each step API with action_space.sample(),
+           render() bit for bit against rasterize_ref; rollout_random at
+           B = 65,536 for 256 steps and with render=True at B = 4,096 for
+           64 steps, from a key made on the CPU and no device named (so on
+           the card), with launch counts; HostPool("CartPole-v1", 8)
+           .run_random(1000) equal to 8 PythonRunner runs; ImpactTracker
+           around a make_vec rollout
   train    DQN through the port's learner (rl/dqn.py): the megastep against
            its plain twin at the learner's widths (B = 1, 2, 4; CartPole,
            FrozenLake, Pong; K = 1 and reset-heavy); the two committed
@@ -80,6 +88,25 @@ repository around it. Phases, each printing one JSON line with its seconds:
            megastep and raster launch counts and peak memory; the CNN on
            the card against the CPU at 1e-5 under cuDNN's TF32 default;
            greedy returns of the Table I params
+  fused    the fused trainer (train/fused.py: steps captured into CUDA
+           graphs and replayed): Table I at fig2's budget, 2,000 steps with
+           chunk 0, 7 and 64, each bit for bit against phase train's
+           host-alternating run (params, replay, key, metrics), 2,000
+           megastep launches counted per replay; the replays alone with
+           host syncs made errors, ms a step by CUDA events, and one replay
+           under torch.profiler confirming the megastep count; a capture
+           that syncs raises; the Pong-v0 CNN for 300 fused steps bit for
+           bit against phase train's eager run, with its ring's peak and
+           one replay under torch.profiler (1 megastep, 2 raster kernels);
+           fleets of 1, 2, 4 and 8 rows for 500 steps, row 2 of 4 bit for
+           bit against its solo run
+  ppo      PPO: the training golden (tests/golden/train_ppo_CartPole-v1.json)
+           on "vmap", "cuda" and fused on "cuda"; PPOConfig() at full width
+           (16 envs, rollout 128, 4 × 4 minibatches, 64-64 tanh) on
+           CartPole-v1, 4 updates host-alternating against 4 fused; 16 fused
+           updates replayed with host syncs made errors: updates/s, env
+           steps/s, megastep launches (128 an update), capture seconds and
+           graph nodes
   numbers  env steps/s per id: classic and grid at B = 65,536 (CartPole-v1
            also at B = 4,096), Pong-v0 and Breakout-v0 at B = 4,096, K = 8,
            Multitask-v0 at B = 65,536, Maze-px and FrozenLake-px at 4,096
@@ -300,13 +327,11 @@ def fresh_rows_calls():
 
 
 def counters():
-    """{kernel: its wrapper}; each wrapper counts its launches."""
-    from repro_torch.kernels.attention import flash_attention_cuda
-    from repro_torch.kernels.envstep import megastep_cuda
-    from repro_torch.kernels.raster import rasterize_cuda
+    """{kernel: its wrapper}; each wrapper counts its launches (a CUDA
+    graph's replays add theirs: train/fused.py)."""
+    from repro_torch.kernels import launch_counters
 
-    return {"megastep": megastep_cuda, "raster": rasterize_cuda,
-            "flash": flash_attention_cuda}
+    return launch_counters()
 
 
 def reset_counts():
@@ -1055,8 +1080,8 @@ def learner_width_check(torch, device):
 def run_training(torch, env, cfg, steps, seed, device):
     """`steps` steps of `make_train_step` from `dqn_init`, every step after
     the first with host syncs made errors, a CUDA event after each step.
-    Returns (state, apply_fn, losses (steps,), seconds, device ms per step,
-    launches)."""
+    Returns (state, apply_fn, metrics of (steps,), seconds, device ms per
+    step, launches): `train_compiled`'s host-alternating run."""
     from repro_torch import random as R
     from repro_torch.rl import dqn
 
@@ -1064,7 +1089,7 @@ def run_training(torch, env, cfg, steps, seed, device):
                                    device=device)
     step_fn = dqn.make_train_step(env, apply_fn, cfg, device)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
-    losses = []
+    history = []
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1074,7 +1099,7 @@ def run_training(torch, env, cfg, steps, seed, device):
             if i == 1:
                 torch.cuda.set_sync_debug_mode("error")
             state, metrics = step_fn(state)
-            losses.append(metrics["loss"])
+            history.append(metrics)
             events[i + 1].record()
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -1082,14 +1107,19 @@ def run_training(torch, env, cfg, steps, seed, device):
     seconds = time.perf_counter() - t0
     counts = read_counts()
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
-    return state, apply_fn, torch.stack(losses), seconds, step_ms, counts
+    metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]}
+    return state, apply_fn, metrics, seconds, step_ms, counts
 
 
 def phase_train(torch, device):
     """DQN through the port's learner on the card: the megastep at the
-    learner's widths, the two training goldens, Table I on CartPole-v1, train_host on the interpreted
-    CartPole, the pixel CNN on Pong-v0 at Table I's memory, the CNN on the
-    card against the CPU under PyTorch's TF32 default, greedy returns."""
+    learner's widths, the two training goldens, Table I on CartPole-v1,
+    train_host on the interpreted CartPole, the pixel CNN on Pong-v0 at
+    Table I's memory, the CNN on the card against the CPU under PyTorch's
+    TF32 default, greedy returns. Returns (launches, the megastep's error,
+    the eager runs that phase fused is held against: {"table_i": (env,
+    cfg, state, apply_fn, metrics), "pong": `dqn_snapshot` of the Pong-v0
+    run})."""
     import dataclasses
 
     import numpy as np
@@ -1137,8 +1167,9 @@ def phase_train(torch, device):
     env = repro_torch.make("CartPole-v1")
     cfg = dataclasses.replace(PAPER_TABLE_I, num_envs=1, learn_start=100,
                               env_backend="cuda")
-    state, apply_fn, loss, sec, step_ms, counts = run_training(
+    state, apply_fn, metrics, sec, step_ms, counts = run_training(
         torch, env, cfg, TABLE_I_STEPS, 0, device)
+    loss = metrics["loss"]
     if counts["megastep"] != TABLE_I_STEPS or counts["raster"]:
         raise AssertionError(f"Table I: launches {counts}, want "
                              f"{TABLE_I_STEPS} megastep, 0 raster")
@@ -1157,7 +1188,7 @@ def phase_train(torch, device):
         "launches": counts, "sync_free_after_step": 1,
         "loss_finite": True, "loss_last": float(loss[-1]),
         "greedy_returns": [float(x) for x in greedy]}
-    table_i = (env, cfg, state, apply_fn)
+    table_i = (env, cfg, state, apply_fn, metrics)
 
     # 3. the Gym row's counterpart: the interpreted CartPole, one transition
     # a call, the same learner on the card
@@ -1175,8 +1206,9 @@ def phase_train(torch, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    pstate, papply, ploss, psec, pms, pcounts = run_training(
+    pstate, papply, pmetrics, psec, pms, pcounts = run_training(
         torch, pong, pcfg, PONG_STEPS, 0, device)
+    ploss = pmetrics["loss"]
     peak = torch.cuda.max_memory_allocated()
     want = {"megastep": PONG_STEPS, "raster": 2 * PONG_STEPS}
     if {k: pcounts[k] for k in want} != want:
@@ -1217,13 +1249,37 @@ def phase_train(torch, device):
     launches = {k: counts[k] + pcounts[k] for k in ("megastep", "raster")}
     out.update(launches=launches, megastep_err=mega_err,
                seconds=time.perf_counter() - t0)
+    pong_run = dqn_snapshot(torch, pstate, pmetrics)
     del pstate, ring, x
     torch.cuda.empty_cache()
     emit(out)
-    return launches, mega_err, table_i
+    return launches, mega_err, {"table_i": table_i, "pong": pong_run}
 
 
-def phase_train_profile(torch, table_i):
+def dqn_snapshot(torch, state, metrics):
+    """A copy of a DQN state and its metrics small enough to keep beside
+    another run: every leaf, but of the replay ring only the rows written
+    so far (`size`; a ring that has not wrapped), after checking that every
+    later row is still 0 as `replay_init` made it. Two snapshots are equal
+    only if the two states and metrics are."""
+    from torch.utils._pytree import tree_map
+
+    r = state.replay
+    n = int(r.size)
+    if int(r.ptr) != n:
+        raise AssertionError(f"dqn_snapshot: the ring has wrapped ({n})")
+    rows = {f: getattr(r, f) for f in ("obs", "action", "reward",
+                                       "next_obs", "done")}
+    for f, x in rows.items():
+        if bool((x[n:] != 0).any()):
+            raise AssertionError(f"dqn_snapshot: replay.{f} holds rows past "
+                                 f"its size {n}")
+    replay = r._replace(**{f: x[:n] for f, x in rows.items()})
+    return tree_map(lambda x: x.clone(), (state._replace(replay=replay),
+                                          metrics))
+
+
+def phase_train_profile(torch, eager):
     """torch.profiler over TRAIN_PROFILE_STEPS Table I steps carried on
     from phase train: wall and device-busy ms a step, idle share, launches
     a step, and each layer of the step read from its `dqn.STAGES` range
@@ -1233,7 +1289,7 @@ def phase_train_profile(torch, table_i):
 
     from repro_torch.rl import dqn
 
-    env, cfg, state, apply_fn = table_i
+    env, cfg, state, apply_fn, _ = eager["table_i"]
     step_fn = dqn.make_train_step(env, apply_fn, cfg, state.step.device)
     carry = [state]
 
@@ -1256,6 +1312,648 @@ def phase_train_profile(torch, table_i):
     emit({"phase": "train_profile", "seconds": time.perf_counter() - t0,
           "steps": TRAIN_PROFILE_STEPS, **out})
     return out
+
+
+# -- the drop-in surface, PPO and the fused trainer ----------------------------
+
+#: phase compat: the runners' widths and depths
+COMPAT_B, COMPAT_STEPS = 65536, 256
+COMPAT_RENDER_B, COMPAT_RENDER_STEPS = 4096, 64
+HOST_POOL_ENVS, HOST_POOL_STEPS = 8, 1000
+IMPACT_B, IMPACT_STEPS = 65536, 256
+#: phase ppo: PPOConfig()'s rollout at full width
+PPO_PARITY_UPDATES, PPO_TIMED_UPDATES = 4, 16
+#: phase fused: Table I at fig2's `_cfg()` and budget (and the Pong-v0 CNN
+#: at phase train's); the chunks held against it; the fleets
+FUSED_CHUNKS = (7, 64)
+FLEET_WIDTHS, FLEET_STEPS = (1, 2, 4, 8), 500
+FLEET_SEEDS = (11, 12, 13, 14, 15, 16, 17, 18)
+
+
+def _tree_equal(torch, a, b) -> bool:
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _tree_max_err(torch, a, b) -> float:
+    """Largest |a - b| over the float leaves; ints and keys must be equal."""
+    from torch.utils._pytree import tree_leaves
+
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if x.dtype.is_floating_point:
+            worst = max(worst, float((x.double() - y.double()).abs().max())
+                        if x.numel() else 0.0)
+        elif not torch.equal(x, y):
+            raise AssertionError(f"an integer leaf differs: {x.dtype}"
+                                 f"{tuple(x.shape)}")
+    return worst
+
+
+def _cudart():
+    """The CUDA runtime PyTorch loaded, for `cudaGraphGetNodes`, or None."""
+    import ctypes
+
+    for line in Path("/proc/self/maps").read_text().splitlines():
+        path = line.split()[-1]
+        if "libcudart.so" in path:
+            lib = ctypes.CDLL(path)
+            lib.cudaGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                              ctypes.POINTER(ctypes.c_size_t)]
+            return lib
+    return None
+
+
+@contextlib.contextmanager
+def kept_graphs(torch):
+    """Every `torch.cuda.CUDAGraph` made inside the block keeps its graph
+    (`keep_graph=True`, instantiated at the end of its capture as by
+    default), so `graph_nodes` can count its nodes. Yields a list of weak
+    references to the graphs made (a strong one would tie each graph into
+    a cycle through this class, for the collector to free at any time)."""
+    import weakref
+
+    made, original = [], torch.cuda.CUDAGraph
+
+    class Kept(original):
+        def __new__(cls, *args, **kwargs):
+            graph = super().__new__(cls, keep_graph=True)
+            made.append(weakref.ref(graph))
+            return graph
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(keep_graph=True)
+
+        def capture_end(self):
+            super().capture_end()
+            try:
+                self.instantiate()
+            except RuntimeError:    # instantiated already
+                pass
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield made
+    finally:
+        torch.cuda.CUDAGraph = original
+
+
+def graph_nodes(ref):
+    """Nodes of a kept CUDA graph (a weak reference from `kept_graphs`:
+    kernels, copies, fills), or None where the graph or the runtime cannot
+    be reached."""
+    import ctypes
+
+    try:
+        raw = ref().raw_cuda_graph()
+        lib = _cudart()
+    except (RuntimeError, OSError, AttributeError):
+        return None
+    if lib is None:
+        return None
+    count = ctypes.c_size_t(0)
+    rc = lib.cudaGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(count))
+    return int(count.value) if rc == 0 else None
+
+
+def phase_compat(torch, device, smi):
+    """The paper's drop-in surface on the card: `cairl.make` (both step
+    APIs, sampled actions, render() against rasterize_ref bit for bit), the
+    runners, the host pool against PythonRunner, and ImpactTracker around a
+    pool rollout. Returns the launch counts of these paths."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch import cairl
+    from repro_torch import random as R
+    from repro_torch.core import runner
+    from repro_torch.envs.baseline_python import CartPolePy
+    from repro_torch.kernels.raster import rasterize_ref
+    from repro_torch.pool import HostPool
+    from repro_torch.sustainability.impact import ImpactTracker
+
+    t0 = time.perf_counter()
+    out = {"phase": "compat"}
+    launches = {"megastep": 0, "raster": 0}
+
+    def tally():
+        counts = read_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        return counts
+
+    reset_counts()
+    episodes = {}
+    for api in (False, True):
+        e = cairl.make("CartPole-v1", seed=int(api), new_step_api=api)
+        if e.device.type != "cuda":
+            raise AssertionError(f"cairl.make ran on {e.device}")
+        obs, ret, steps, done = e.reset(), 0.0, 0, False
+        while not done:
+            step = e.step(e.action_space.sample())
+            obs, ret, steps = step[0], ret + step[1], steps + 1
+            done = any(step[2:-1])
+            if not np.isfinite(obs).all() or steps > 500:
+                raise AssertionError(f"cairl.make episode: obs {obs}, "
+                                     f"{steps} steps")
+        frame = e.render()
+        segs, intens = e.unwrapped.scene(e._state.inner)
+        ref = rasterize_ref(segs[None], intens[None], 84, 84)[0].cpu().numpy()
+        if not np.array_equal(frame, ref):
+            raise AssertionError("render() differs from rasterize_ref by "
+                                 f"{np.abs(frame - ref).max()}")
+        episodes["5-tuple" if api else "4-tuple"] = {
+            "steps": steps, "return": ret, "frame_max": float(frame.max())}
+    out["cairl_make"] = {"episodes": episodes, "render_vs_ref": "bit for bit",
+                         "launches": tally()}
+
+    env = repro_torch.make("CartPole-v1")
+    rollouts = {}
+    for b, steps, render in ((COMPAT_B, COMPAT_STEPS, False),
+                             (COMPAT_RENDER_B, COMPAT_RENDER_STEPS, True)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        # the JAX-style call: a key made on the CPU, no device named
+        rew, eps, frame = runner.rollout_random(env, R.PRNGKey(5), steps, b,
+                                                render=render)
+        torch.cuda.synchronize()
+        if rew.device.type != "cuda" or frame.device.type != "cuda":
+            raise AssertionError(f"rollout_random ran on {rew.device}")
+        sec, counts = time.perf_counter() - t1, tally()
+        want = {"megastep": 0, "raster": steps + 1 if render else 0,
+                "flash": 0}
+        if counts != want or int(eps.sum()) < 1 or not bool(
+                torch.isfinite(rew).all()):
+            raise AssertionError(f"rollout_random B={b}: launches {counts} "
+                                 f"(want {want}), {int(eps.sum())} episodes")
+        rollouts[f"B={b},render={render}"] = {
+            "steps": steps, "seconds": sec, "env_steps_per_s": b * steps / sec,
+            "episodes": int(eps.sum()), "launches": counts,
+            "frame_shape": list(frame.shape)}
+    out["rollout_random"] = rollouts
+
+    t1 = time.perf_counter()
+    pool = HostPool("CartPole-v1", HOST_POOL_ENVS)
+    try:
+        totals, eps = pool.run_random(HOST_POOL_STEPS, seed=3)
+    finally:
+        pool.close()
+    host_sec = time.perf_counter() - t1
+    solo = [runner.PythonRunner(CartPolePy).run(HOST_POOL_STEPS, seed=3 + i)
+            for i in range(HOST_POOL_ENVS)]
+    if [(float(t), int(n)) for t, n in zip(totals, eps)] != [
+            (float(np.float32(t)), n) for t, n in solo]:
+        raise AssertionError("HostPool.run_random differs from PythonRunner")
+    out["host_pool"] = {"envs": HOST_POOL_ENVS, "steps": HOST_POOL_STEPS,
+                        "seconds": host_sec, "episodes": [int(n) for n in eps],
+                        "equal_to_python_runner": True}
+
+    pool = repro_torch.make_vec("CartPole-v1", IMPACT_B, unroll=K)
+    reset_counts()
+    with ImpactTracker() as tracker:
+        pool.rollout(IMPACT_STEPS, R.PRNGKey(7, device))
+        torch.cuda.synchronize()
+    counts = tally()
+    if counts["megastep"] != IMPACT_STEPS // K:
+        raise AssertionError(f"impact rollout: launches {counts}")
+    out["impact"] = {"rollout": f"make_vec('CartPole-v1', {IMPACT_B}, "
+                                f"unroll={K}).rollout({IMPACT_STEPS})",
+                     "report": tracker.impact.report(), "launches": counts,
+                     "envelope": "the paper's CPU (95 W TDP); the card's "
+                                 "power is not modelled",
+                     "card": smi}
+    out.update(launches=launches, seconds=time.perf_counter() - t0)
+    emit(out)
+    return launches
+
+
+def _ppo_golden(torch, device, backend, fused):
+    """One run of the PPO training golden on the card against the committed
+    JSON: (max error of the floats, megastep launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch
+    from repro_torch import random as R
+    from repro_torch.rl import dqn, ppo
+    from repro_torch.train import golden_train_setup
+
+    gid = "ppo/CartPole-v1"
+    want = json.loads((ROOT / "tests" / "golden" / "train_ppo_CartPole-v1.json")
+                      .read_text())
+    _, env_id, cfg, updates = golden_train_setup(gid)
+    cfg = dataclasses.replace(cfg, env_backend=backend)
+    env = repro_torch.make(env_id)
+    reset_counts()
+    state, _ = ppo.train(env, cfg, updates, R.PRNGKey(sum(map(ord, gid)),
+                                                      device), fused=fused)
+    counts = read_counts()
+    got = dqn.golden_checksums(
+        env, state, lambda p, o: ppo.ac_apply(p, o, cfg.activation)[0])
+    if got["final_key"] != want["final_key"]:
+        raise AssertionError(f"{gid} on {backend}: final_key "
+                             f"{got['final_key']} != {want['final_key']}")
+    floats = [k for k, v in want.items() if isinstance(v, float)]
+    for k in floats:
+        np.testing.assert_allclose(got[k], want[k], rtol=GOLDEN_TOL,
+                                   atol=GOLDEN_TOL, err_msg=f"{gid}.{k}")
+    want_launches = updates * cfg.rollout_len if backend == "cuda" else 0
+    if counts["megastep"] != want_launches:
+        raise AssertionError(f"{gid} on {backend}: {counts} launches")
+    return max(abs(got[k] - want[k]) for k in floats), counts["megastep"]
+
+
+def phase_ppo(torch, device):
+    """PPO on the card: the training golden on "vmap" and "cuda" (and
+    fused on "cuda"); PPOConfig() at full width on CartPole-v1, 4 updates
+    host-alternating against 4 fused (the parity contract, and whether they
+    agree bit for bit); then 16 fused updates from captured graphs, timed.
+    Returns the megastep launches of these paths."""
+    from repro_torch import make
+    from repro_torch import random as R
+    from repro_torch.rl import ppo
+    from repro_torch.train import fused as F
+
+    t0 = time.perf_counter()
+    out, launches = {"phase": "ppo"}, 0
+    goldens = {}
+    for backend, fused in (("vmap", False), ("cuda", False), ("cuda", True)):
+        err, n = _ppo_golden(torch, device, backend, fused)
+        goldens[f"{backend}{',fused' if fused else ''}"] = {
+            "max_abs_err": err, "megastep_launches": n}
+        launches += n
+    out["golden"] = goldens
+
+    env, cfg = make("CartPole-v1"), ppo.PPOConfig(env_backend="cuda")
+    reset_counts()
+    t1 = time.perf_counter()
+    host, host_m = ppo.train(env, cfg, PPO_PARITY_UPDATES, R.PRNGKey(0, device))
+    torch.cuda.synchronize()
+    host_sec = time.perf_counter() - t1
+    fused, fused_m = ppo.train(env, cfg, PPO_PARITY_UPDATES,
+                               R.PRNGKey(0, device), fused=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = 2 * PPO_PARITY_UPDATES * cfg.rollout_len
+    if counts["megastep"] != want:
+        raise AssertionError(f"PPO parity: {counts}, want {want} megastep")
+    launches += want
+    err = max(_tree_max_err(torch, host, fused),
+              _tree_max_err(torch, host_m, fused_m))
+    if err > 1e-4:
+        raise AssertionError(f"PPO fused against host-alternating: {err}")
+    out["parity"] = {
+        "updates": PPO_PARITY_UPDATES, "bit_for_bit": _tree_equal(
+            torch, (host, host_m), (fused, fused_m)),
+        "max_abs_err": err, "host_seconds": host_sec,
+        "host_ms_per_update": 1e3 * host_sec / PPO_PARITY_UPDATES,
+        "return": [float(x) for x in host_m["return"]]}
+
+    # 16 updates replayed from captured graph units, after the capture
+    state = ppo.ppo_init(env, cfg, R.PRNGKey(1, device))
+    run = F.fused_train_chunk(ppo.make_update_body(env, cfg, device))
+    reset_counts()
+    with kept_graphs(torch) as graphs:
+        t1 = time.perf_counter()
+        carry, _ = run(state, F.WARMUP_STEPS + F.UNIT_STEPS)
+        torch.cuda.synchronize()
+        first_sec = time.perf_counter() - t1
+    nodes = [graph_nodes(g) for g in graphs]
+    launches += read_counts()["megastep"]
+    reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t1 = time.perf_counter()
+    start.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry, metrics = run(carry, PPO_TIMED_UPDATES)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    end.record()
+    end.synchronize()
+    sec = time.perf_counter() - t1
+    counts = read_counts()
+    want = PPO_TIMED_UPDATES * cfg.rollout_len
+    if counts["megastep"] != want or run.stats["replays"] != (
+            F.UNIT_STEPS + PPO_TIMED_UPDATES) // F.UNIT_STEPS:
+        raise AssertionError(f"PPO timed: {counts} (want {want} megastep), "
+                             f"stats {run.stats}")
+    if not bool(torch.isfinite(metrics["loss"]).all()):
+        raise AssertionError("PPO timed: a loss is not finite")
+    launches += want
+    env_steps = PPO_TIMED_UPDATES * cfg.rollout_len * cfg.num_envs
+    out["timed"] = {
+        "updates": PPO_TIMED_UPDATES, "unit_steps": F.UNIT_STEPS,
+        "seconds": sec, "device_ms": start.elapsed_time(end),
+        "updates_per_s": PPO_TIMED_UPDATES / sec,
+        "env_steps_per_s": env_steps / sec, "megastep_launches": counts[
+            "megastep"],
+        "capture_seconds": run.stats["capture"]["seconds"],
+        "first_call_seconds": first_sec, "graph_nodes": nodes,
+        "sync_free": True, "return_last": float(metrics["return"][-1]),
+        "clock": "host clock around the replays and a synchronize; "
+                 "device_ms by CUDA events"}
+    out.update(launches=launches, seconds=time.perf_counter() - t0)
+    emit(out)
+    return launches
+
+
+def _profile_replay(torch, run, carry, n):
+    """Kernels in a torch.profiler trace of `run(carry, n)` (one replay of
+    a cached graph): (carry, megastep kernels, raster kernels, all
+    kernels, device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        carry, _ = run(carry, n)
+        torch.cuda.synchronize()
+    kernels = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+    mega = sum(e.count for e in kernels if "megastep_kernel" in e.key)
+    raster = sum(e.count for e in kernels if "raster_kernel" in e.key)
+    return carry, mega, raster, sum(e.count for e in kernels), sum(
+        e.self_device_time_total for e in kernels) / 1e3
+
+
+def phase_fused(torch, device, eager):
+    """The fused trainer on the card, held against phase train's
+    host-alternating runs: Table I (2,000 steps from PRNGKey(0)), final
+    params, replay, key and metrics bit for bit with chunk 0, 7 and 64; no
+    host sync in the replays; launches counted per replay and confirmed by
+    the profiler; ms a step by CUDA events; the Pong-v0 CNN's 300 fused
+    steps bit for bit against the eager run, with its ring's peak and one
+    replay profiled; fleets of 1, 2, 4 and 8 rows, row 2 of 4 against its
+    solo run. Returns the launches of these paths."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch import make
+    from repro_torch import random as R
+    from repro_torch.rl import dqn
+    from repro_torch.train import fleet
+    from repro_torch.train import fused as F
+
+    env, cfg, host, _, host_m = eager["table_i"]
+    t0 = time.perf_counter()
+    out = {"phase": "fused", "unit_steps": F.UNIT_STEPS,
+           "warmup_steps": F.WARMUP_STEPS}
+    mega = 0
+    runs = {}
+    for chunk in (0,) + FUSED_CHUNKS:
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _, metrics = dqn.train_compiled(
+            env, cfg, TABLE_I_STEPS, R.PRNGKey(0, device), chunk=chunk,
+            fused=True)
+        torch.cuda.synchronize()
+        sec, counts = time.perf_counter() - t1, read_counts()
+        if counts["megastep"] != TABLE_I_STEPS:
+            raise AssertionError(f"fused chunk={chunk}: launches {counts}")
+        equal = _tree_equal(torch, (host, host_m), (state, metrics))
+        if not equal:
+            raise AssertionError(f"fused chunk={chunk} differs from the "
+                                 "host-alternating run: max error "
+                                 f"{_tree_max_err(torch, host, state)}")
+        mega += counts["megastep"]
+        runs[str(chunk)] = {"seconds": sec, "bit_for_bit": equal,
+                            "launches": counts}
+        del state, metrics
+    out["table_i"] = runs
+
+    # the replays alone: no host sync, device ms a step, the profiler's count
+    state, apply_fn = dqn.dqn_init(env, cfg, R.PRNGKey(0, device))
+    run = F.fused_train_chunk(dqn.make_train_step(env, apply_fn, cfg, device))
+    reset_counts()
+    with kept_graphs(torch) as graphs:
+        carry, _ = run(state, F.WARMUP_STEPS + F.UNIT_STEPS)
+    nodes = graph_nodes(graphs[0])
+    mega += read_counts()["megastep"]
+    n = (TABLE_I_STEPS // F.UNIT_STEPS) * F.UNIT_STEPS
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    start.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry, metrics = run(carry, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    end.record()
+    end.synchronize()
+    sec, counts = time.perf_counter() - t1, read_counts()
+    if counts["megastep"] != n:
+        raise AssertionError(f"replays: {counts}, want {n} megastep")
+    mega += n
+    with uncounted():
+        carry, prof_mega, _, prof_kernels, prof_ms = _profile_replay(
+            torch, run, carry, F.UNIT_STEPS)
+    if prof_mega != F.UNIT_STEPS:
+        raise AssertionError(f"the profiler saw {prof_mega} megastep kernels "
+                             f"in one replay of {F.UNIT_STEPS} steps")
+    out["replays"] = {
+        "steps": n, "seconds": sec, "ms_per_step": start.elapsed_time(end) / n,
+        "transitions_per_s": n / sec, "sync_free": True,
+        "megastep_launches": counts["megastep"],
+        "graph_nodes_per_unit": nodes, "warmup_steps": run.stats[
+            "warmup_steps"],
+        "capture": run.stats["capture"],
+        "profiler_one_replay": {"megastep_kernels": prof_mega,
+                                "kernels": prof_kernels,
+                                "device_busy_ms": prof_ms},
+        "clock": "ms_per_step by CUDA events around the replays; seconds "
+                 "by the host clock and a synchronize"}
+    del carry, state
+
+    # a capture that syncs raises, and the card works on after it
+    def syncs(carry):
+        float(carry.step)
+        return carry, {"step": carry.step.float()}
+
+    state, _ = dqn.dqn_init(env, cfg, R.PRNGKey(1, device))
+    try:
+        F.fused_train_chunk(syncs)(state, F.WARMUP_STEPS + 2)
+    except RuntimeError as e:
+        refused = str(e).splitlines()[0][:160]
+    else:
+        raise AssertionError("a capture that syncs did not raise")
+    if float(torch.ones(4, device=device).sum()) != 4.0:
+        raise AssertionError("the card failed after a refused capture")
+    out["refused_capture"] = refused
+
+    # the Pong-v0 CNN: the 11.29 GB ring exists once
+    pong = make("Pong-v0")
+    pcfg = dqn.DQNConfig(**PONG_CFG, env_backend="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t1 = time.perf_counter()
+    pstate, papply, pmetrics = dqn.train_compiled(
+        pong, pcfg, PONG_STEPS, R.PRNGKey(0, device), fused=True)
+    torch.cuda.synchronize()
+    psec, pcounts = time.perf_counter() - t1, read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    ring = sum(x.numel() * x.element_size()
+               for x in (pstate.replay.obs, pstate.replay.next_obs))
+    want = {"megastep": PONG_STEPS, "raster": 2 * PONG_STEPS + 1}
+    if {k: pcounts[k] for k in want} != want or peak > 1.05 * ring:
+        raise AssertionError(f"Pong-v0 fused: launches {pcounts} (want "
+                             f"{want}), peak {peak} for a {ring}-byte ring")
+    if not bool(torch.isfinite(pmetrics["loss"]).all()):
+        raise AssertionError("Pong-v0 fused: a loss is not finite")
+    if not _tree_equal(
+            torch, eager["pong"], dqn_snapshot(torch, pstate, pmetrics)):
+        raise AssertionError("Pong-v0 fused differs from phase train's "
+                             "eager run")
+    mega, raster = mega + pcounts["megastep"], pcounts["raster"]
+    # one Pong-v0 replay under the profiler: 1 megastep, 2 raster kernels
+    run = F.fused_train_chunk(dqn.make_train_step(pong, papply, pcfg, device))
+    reset_counts()
+    carry, _ = run(pstate, F.WARMUP_STEPS + F.UNIT_STEPS)
+    counts = read_counts()
+    mega, raster = mega + counts["megastep"], raster + counts["raster"]
+    with uncounted():
+        carry, prof_mega, prof_raster, prof_kernels, prof_ms = \
+            _profile_replay(torch, run, carry, F.UNIT_STEPS)
+    if (prof_mega, prof_raster) != (F.UNIT_STEPS, 2 * F.UNIT_STEPS):
+        raise AssertionError(f"the profiler saw {prof_mega} megastep and "
+                             f"{prof_raster} raster kernels in one Pong-v0 "
+                             f"replay of {F.UNIT_STEPS} steps")
+    out["pong_cnn"] = {"steps": PONG_STEPS, "seconds": psec,
+                       "ms_per_step": 1e3 * psec / PONG_STEPS,
+                       "launches": pcounts, "ring_bytes": ring,
+                       "peak_bytes_above_start": peak,
+                       "bit_for_bit_with_eager": True,
+                       "profiler_one_replay": {
+                           "megastep_kernels": prof_mega,
+                           "raster_kernels": prof_raster,
+                           "kernels": prof_kernels,
+                           "device_busy_ms": prof_ms},
+                       "clock": "host clock, captures included"}
+    del pstate, pmetrics, carry, run
+    torch.cuda.empty_cache()
+
+    # fleets: F rows of Table I, one graph unit for all rows
+    fleets = {}
+    for width in FLEET_WIDTHS:
+        seeds = list(FLEET_SEEDS[:width])
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        states, metrics = fleet(env, seeds, FLEET_STEPS, cfg=cfg)
+        torch.cuda.synchronize()
+        sec, counts = time.perf_counter() - t1, read_counts()
+        if counts["megastep"] != width * FLEET_STEPS:
+            raise AssertionError(f"fleet {width}: launches {counts}")
+        mega += counts["megastep"]
+        fleets[str(width)] = {"seconds": sec, "runs_per_s": width / sec,
+                              "steps": FLEET_STEPS,
+                              "transitions_per_s": width * FLEET_STEPS / sec,
+                              "launches": counts}
+        if width == 4:
+            reset_counts()
+            solo, _, solo_m = dqn.train_compiled(
+                env, cfg, FLEET_STEPS, R.PRNGKey(seeds[2], device), fused=True)
+            solo_mega = read_counts()["megastep"]
+            if solo_mega != FLEET_STEPS:
+                raise AssertionError(f"fleet row 2's solo run: {solo_mega} "
+                                     "megastep launches")
+            mega += solo_mega
+            row = {k: v[2] for k, v in metrics.items()}
+            if not _tree_equal(torch, (solo, solo_m),
+                               (tree_map(lambda x: x[2], states), row)):
+                raise AssertionError("fleet row 2 of 4 differs from its solo "
+                                     "run")
+            fleets["4"]["row_2_equals_solo"] = True
+        del states, metrics
+    out["fleets"] = fleets
+    launches = {"megastep": mega, "raster": raster}
+    out.update(launches=launches, seconds=time.perf_counter() - t0)
+    emit(out)
+    return launches
+
+
+def phase_unit_sweep(torch, device, units=(1, 2, 4, 8, 16, 32), steps=512,
+                     ppo_units=(1, 2, 4, 8), ppo_updates=16, rounds=3):
+    """What a graph unit of `u` steps costs, for choosing
+    `train/fused.py::UNIT_STEPS`. For Table I DQN (units `units`, windows
+    of `steps` steps) and PPOConfig() on "cuda" (units `ppo_units`,
+    windows of `ppo_updates` updates): each unit's runner captures once
+    (capture seconds, graph nodes), then every runner replays one window
+    per round, the units interleaved, `rounds` rounds: device ms a step
+    by CUDA events and host ms a step until the window is queued, each
+    round's value and their spread. Not run by main(); run it alone."""
+    import dataclasses
+
+    from repro_torch import make
+    from repro_torch import random as R
+    from repro_torch.configs.cairl_dqn import PAPER_TABLE_I
+    from repro_torch.rl import dqn, ppo
+    from repro_torch.train import fused as F
+
+    env = make("CartPole-v1")
+    cfg = dataclasses.replace(PAPER_TABLE_I, num_envs=1, learn_start=100,
+                              env_backend="cuda")
+    pcfg = ppo.PPOConfig(env_backend="cuda")
+    t0 = time.perf_counter()
+    rows = []
+    with uncounted():
+        for algo, us, n in (("dqn", units, steps), ("ppo", ppo_units,
+                                                     ppo_updates)):
+            for u in us:
+                if algo == "dqn":
+                    init, apply_fn = dqn.dqn_init(env, cfg,
+                                                  R.PRNGKey(0, device))
+                    step_fn = dqn.make_train_step(env, apply_fn, cfg, device)
+                else:
+                    init = ppo.ppo_init(env, pcfg, R.PRNGKey(0, device))
+                    step_fn = ppo.make_update_body(env, pcfg, device)
+                run = F._GraphRunner(step_fn, u)
+                with kept_graphs(torch) as graphs:
+                    carry, _ = run(init, F.WARMUP_STEPS + u)
+                    torch.cuda.synchronize()
+                rows.append({"algo": algo, "unit_steps": u,
+                             "window_steps": n // u * u,
+                             "capture_seconds": run.stats["capture"][
+                                 "seconds"],
+                             "graph_nodes": graph_nodes(graphs[0]),
+                             "device_ms_per_step": [],
+                             "host_ms_per_step": [], "_run": run,
+                             "_carry": carry})
+        for _ in range(rounds):
+            for row in rows:
+                n = row["window_steps"]
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                start.record()
+                row["_carry"], _ = row["_run"](row["_carry"], n)
+                end.record()
+                host = time.perf_counter() - t1
+                end.synchronize()
+                row["device_ms_per_step"].append(start.elapsed_time(end) / n)
+                row["host_ms_per_step"].append(1e3 * host / n)
+    for row in rows:
+        del row["_run"], row["_carry"]
+        ms = row["device_ms_per_step"]
+        row.update(device_ms_median=statistics.median(ms),
+                   device_ms_spread=(max(ms) - min(ms)) / statistics.median(
+                       ms))
+        emit({"phase": "unit_sweep", **row})
+    emit({"phase": "unit_sweep", "rounds": rounds,
+          "seconds": time.perf_counter() - t0,
+          "clock": "device ms by CUDA events around a window of replays; "
+                   "host ms until the window was queued"})
+    return rows
 
 
 def phase_numbers(device, pools, vmap_pools, sync):
@@ -2051,8 +2749,11 @@ def main() -> int:
     del render_pools
     phase_parity(torch, device)
     phase_golden(device)
-    train_launches, train_err, table_i = phase_train(torch, device)
+    compat_launches = phase_compat(torch, device, smi)
+    train_launches, train_err, eager = phase_train(torch, device)
     mega_err = max(mega_err, train_err)
+    fused_launches = phase_fused(torch, device, eager)
+    ppo_launches = phase_ppo(torch, device)
     numbers = phase_numbers(device, pools, vmap_pools, sync)
     del vmap_pools
     bodies, bodies_err, memory = phase_bodies(torch, device, pools, sync,
@@ -2065,7 +2766,7 @@ def main() -> int:
         mega_err = max(mega_err, pixel[env_id]["megastep_err"])
         raster_err = max(raster_err, pixel[env_id]["raster_err"])
     del pools
-    phase_train_profile(torch, table_i)
+    phase_train_profile(torch, eager)
     phase_lm_profile(torch, device)
 
     cartpole = bodies["CartPole"]
@@ -2075,9 +2776,14 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/megastep.cu",
         "replaces": "src/repro/kernels/envstep/megastep.py:80",
-        "launches": launches["megastep"] + train_launches["megastep"],
+        "launches": (launches["megastep"] + train_launches["megastep"]
+                     + compat_launches["megastep"]
+                     + fused_launches["megastep"] + ppo_launches),
         "launches_per_path": {"env": launches["megastep"],
-                              "train": train_launches["megastep"]},
+                              "train": train_launches["megastep"],
+                              "compat": compat_launches["megastep"],
+                              "fused": fused_launches["megastep"],
+                              "ppo": ppo_launches},
         "max_abs_err": mega_err,
         "ms": cartpole["ms"],
         "plain_ms": cartpole["plain_ms"],
@@ -2098,9 +2804,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/raster.cu",
         "replaces": "src/repro/kernels/raster/raster.py:57",
-        "launches": launches["raster"] + train_launches["raster"],
+        "launches": (launches["raster"] + train_launches["raster"]
+                     + compat_launches["raster"] + fused_launches["raster"]),
         "launches_per_path": {"env": launches["raster"],
-                              "train": train_launches["raster"]},
+                              "train": train_launches["raster"],
+                              "compat": compat_launches["raster"],
+                              "fused": fused_launches["raster"]},
         "max_abs_err": raster_err,
         "ms": pong["raster"]["ms"],
         "plain_ms": pong["raster"]["plain_ms"],

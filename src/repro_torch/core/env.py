@@ -42,6 +42,10 @@ class Env:
 
     observation_space: Space
     action_space: Space
+    #: the `EnvSpec` this env was built from, when it came out of the
+    #: registry (`registry.make` sets it on the outermost layer;
+    #: `registry.spec_of` walks wrapper stacks to find it)
+    spec = None
 
     def reset(self, keys: torch.Tensor) -> Tuple[Any, torch.Tensor]:
         raise NotImplementedError
@@ -89,3 +93,20 @@ def supports_fused_step(env: Env) -> bool:
     from repro_torch.kernels.envstep import supports
 
     return supports(env)
+
+
+def zeros_info() -> Dict[str, torch.Tensor]:
+    """The info dict of an env that reports nothing: a fixed structure, so
+    a loop over steps carries the same keys every step."""
+    return {}
+
+
+def terminal_timestep(env: Env, state, obs) -> Timestep:
+    """A done, zero-reward `Timestep` over `obs`'s lanes (the lane axes
+    are those of `obs` less the env's observation axes)."""
+    lanes = obs.shape[:obs.dim() - len(env.observation_space.shape)]
+    return Timestep(
+        state=state, obs=obs,
+        reward=torch.zeros(lanes, dtype=torch.float32, device=obs.device),
+        done=torch.ones(lanes, dtype=torch.bool, device=obs.device),
+        info=zeros_info())

@@ -4,8 +4,9 @@ A `Transform` is the data of one wrapper application (`TimeLimit(500)`), so
 the registry builds stacks from it and the fused planner
 (kernels/envstep/ops.py::_plan) reads a built stack back as
 `(core, transforms)` instead of inspecting wrapper classes. Each transform
-carries its fusion role, the part of the fused step that models it.
-`FlattenObs` and `RewardScale` come with later slices.
+carries its fusion role, the part of the fused step that models it;
+`FlattenObs` and `RewardScale` have none, so a stack holding one steps on
+the vmap path.
 """
 from __future__ import annotations
 
@@ -59,6 +60,21 @@ class FrameStack(Transform):
     fusion = FUSION_FRAME_STACK
 
 
+@dataclasses.dataclass(frozen=True)
+class FlattenObs(Transform):
+    """Flatten observations to a 1-D Box (wrappers.FlattenObs)."""
+
+    wrapper = _w.FlattenObs
+
+
+@dataclasses.dataclass(frozen=True)
+class RewardScale(Transform):
+    """Scale rewards by a static factor (wrappers.RewardScale)."""
+
+    scale: float
+    wrapper = _w.RewardScale
+
+
 def build_pipeline(env: Env, transforms: Tuple[Transform, ...]) -> Env:
     """Apply transforms innermost-first."""
     for t in transforms:
@@ -71,6 +87,8 @@ _FROM_WRAPPER = {
     _w.TimeLimit: lambda w: TimeLimit(w.max_steps),
     _w.ObsToPixels: lambda w: ObsToPixels(),
     _w.FrameStack: lambda w: FrameStack(w.num_frames),
+    _w.FlattenObs: lambda w: FlattenObs(),
+    _w.RewardScale: lambda w: RewardScale(w.scale),
 }
 
 
@@ -95,5 +113,6 @@ def declared_pipeline(env: Env):
 
 
 __all__ = ["FUSION_FRAME_STACK", "FUSION_PIXELS", "FUSION_TIME_LIMIT",
-           "FrameStack", "ObsToPixels", "TimeLimit", "Transform",
+           "FlattenObs", "FrameStack", "ObsToPixels", "RewardScale",
+           "TimeLimit", "Transform",
            "build_pipeline", "declared_pipeline", "transform_of"]

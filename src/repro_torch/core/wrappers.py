@@ -1,9 +1,10 @@
-"""Wrappers (port of `repro.core.wrappers`): `TimeLimit`, `AutoReset`,
-`Vec`, and the pixel pipeline's `ObsToPixels` and `FrameStack`.
+"""Wrappers (port of `repro.core.wrappers`): `TimeLimit`, `FlattenObs`,
+`RewardScale`, `AutoReset`, `Vec`, and the pixel pipeline's `ObsToPixels`
+and `FrameStack`.
 
 Batch-native over the leading lane axes: where the JAX package composes
 single-env wrappers and `vmap`s the stack, each wrapper here steps all lanes
-at once. `FlattenObs` and `RewardScale` come with later slices.
+at once.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch import random as R
 from repro_torch.core.env import Env
-from repro_torch.core.spaces import Box, Space
+from repro_torch.core.spaces import Box, Space, flatten_obs, flatten_space
 
 
 class Wrapper(Env):
@@ -86,6 +87,38 @@ class TimeLimit(Wrapper):
         return self.env.render(state.inner)
 
 
+class FlattenObs(Wrapper):
+    """Flatten observations to a 1-D Box per lane (the paper's Flatten
+    wrapper); discrete observations become one-hot codes."""
+
+    @property
+    def observation_space(self) -> Box:  # type: ignore[override]
+        return flatten_space(self.env.observation_space)
+
+    def _flat(self, obs):
+        return flatten_obs(self.env.observation_space, obs)
+
+    def reset(self, keys):
+        state, obs = self.env.reset(keys)
+        return state, self._flat(obs)
+
+    def step(self, state, action, key=None):
+        ts = self.env.step(state, action, key)
+        return ts._replace(obs=self._flat(ts.obs))
+
+
+class RewardScale(Wrapper):
+    """Scale rewards by a static factor."""
+
+    def __init__(self, env: Env, scale: float):
+        super().__init__(env)
+        self.scale = float(scale)
+
+    def step(self, state, action, key=None):
+        ts = self.env.step(state, action, key)
+        return ts._replace(reward=ts.reward * self.scale)
+
+
 class AutoResetState(NamedTuple):
     inner: Any
     key: torch.Tensor
@@ -145,6 +178,11 @@ class Vec(Wrapper):
     def step(self, state, action, key=None):
         keys = None if key is None else R.split(key, self.num_envs)
         return self.env.step(state, action, keys)
+
+    def sample_actions(self, key):
+        """One action per lane, each from its own key of
+        `split(key, num_envs)`, as the JAX `Vec` samples them."""
+        return self.env.action_space.sample(R.split(key, self.num_envs))
 
 
 class ObsToPixels(Wrapper):
@@ -210,5 +248,6 @@ class FrameStack(Wrapper):
         return self.env.render(state.inner)
 
 
-__all__ = ["AutoReset", "AutoResetState", "FrameStack", "FrameStackState",
-           "ObsToPixels", "TimeLimit", "TimeLimitState", "Vec", "Wrapper"]
+__all__ = ["AutoReset", "AutoResetState", "FlattenObs", "FrameStack",
+           "FrameStackState", "ObsToPixels", "RewardScale", "TimeLimit",
+           "TimeLimitState", "Vec", "Wrapper"]

@@ -14,23 +14,31 @@ from repro_torch.envs.grid import CliffWalk, FrozenLake, Maze, Snake
 from repro_torch.envs.multitask import Multitask
 from repro_torch.envs.puzzle import LightsOut
 
-register_family("CartPole", CartPole, max_steps=500, version=1)
-register_family("Acrobot", Acrobot, max_steps=500, version=1)
-register_family("MountainCar", MountainCar, max_steps=200)
-register_family("Pendulum", Pendulum, max_steps=200, version=1)
+register_family("CartPole", CartPole, max_steps=500, version=1,
+                tags=("classic",))
+register_family("Acrobot", Acrobot, max_steps=500, version=1,
+                tags=("classic",))
+register_family("MountainCar", MountainCar, max_steps=200, tags=("classic",))
+register_family("Pendulum", Pendulum, max_steps=200, version=1,
+                tags=("classic",))
 
 # The paper's flagship Flash game (§IV-C) and puzzle runtime (§IV-D).
-register_family("Multitask", Multitask, max_steps=1000)
-register_family("LightsOut", LightsOut, max_steps=100)
+register_family("Multitask", Multitask, max_steps=1000, tags=("flash",))
+register_family("LightsOut", LightsOut, max_steps=100, tags=("puzzle",))
 
-register_family("Pong", Pong, max_steps=1000, obs="pixels")
-register_family("Breakout", Breakout, max_steps=1000, obs="pixels")
+register_family("Pong", Pong, max_steps=1000, obs="pixels", tags=("arcade",))
+register_family("Breakout", Breakout, max_steps=1000, obs="pixels",
+                tags=("arcade",))
 
 # The procedural gridworld suite: the level is drawn anew every episode.
-register_family("FrozenLake", FrozenLake, max_steps=100, pixel_variant=True)
-register_family("CliffWalk", CliffWalk, max_steps=100, pixel_variant=True)
-register_family("Snake", Snake, max_steps=200, pixel_variant=True)
-register_family("Maze", Maze, max_steps=200, pixel_variant=True)
+register_family("FrozenLake", FrozenLake, max_steps=100, pixel_variant=True,
+                tags=("grid",))
+register_family("CliffWalk", CliffWalk, max_steps=100, pixel_variant=True,
+                tags=("grid",))
+register_family("Snake", Snake, max_steps=200, pixel_variant=True,
+                tags=("grid",))
+register_family("Maze", Maze, max_steps=200, pixel_variant=True,
+                tags=("grid",))
 
 __all__ = ["Acrobot", "Breakout", "CartPole", "CliffWalk", "FrozenLake",
            "LightsOut", "Maze", "MountainCar", "Multitask", "Pendulum",

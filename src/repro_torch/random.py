@@ -4,8 +4,9 @@ The committed golden traces (tests/golden/) and every parity test against
 the JAX package depend on the exact random stream, so this is a bit-exact
 port of JAX's *non-partitionable* threefry layout (`jax.random` under
 `jax.threefry_partitionable(False)`): `PRNGKey`, `split`, `fold_in`,
-`uniform`, `bernoulli` and `randint`. `normal` draws the same uniforms and
-is within a few ulps of JAX's (see `erf_inv`).
+`uniform`, `bernoulli`, `randint` and `permutation`. `normal` draws the
+same uniforms and is within a few ulps of JAX's (see `erf_inv`), and so is
+`categorical`'s Gumbel noise, whose logarithms are PyTorch's.
 
 A key is an int64 tensor whose last axis holds the two uint32 words
 `(..., 2)`; any leading axes are a batch of independent keys, so one call
@@ -200,6 +201,32 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
     return (offset % span + minval).to(torch.int32)
 
 
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """`jax.random.categorical` (with replacement, `mode="low"`): the
+    Gumbel-max trick, `argmax(-log(-log(u)) + logits)` with u uniform on
+    [tiny, 1), the first index winning ties. One key draws the noise for
+    the whole `logits` array, as in the JAX package."""
+    tiny = float(np.finfo(np.float32).tiny)
+    u = uniform(key, tuple(logits.shape), tiny, 1.0)
+    return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=axis)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)`: a shuffle of `arange(n)` (int32)
+    by JAX's `_shuffle`, `ceil(3 ln n / ln(2**32 - 1))` rounds of a split,
+    32 random bits per element and a stable sort by them (1 round at
+    n = 64, 2 at n = 2,048)."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_MASK)))
+    x = torch.arange(n, dtype=torch.int32, device=key.device)
+    for _ in range(rounds):
+        pair = split(key)
+        key = pair[0]
+        order = torch.sort(random_bits(pair[1], (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
 def _span(minval: int, maxval: int) -> Tuple[int, int]:
     """randint's span (1 when the range is empty) and its multiplier,
     `(2**16 mod span)**2 mod span` with the square wrapped to 32 bits as
@@ -221,6 +248,6 @@ def _span_tensor(minval: int, maxval: torch.Tensor):
     return span, ((multiplier * multiplier) & _MASK) % span
 
 
-__all__ = ["KEY_DTYPE", "PRNGKey", "bernoulli", "erf_inv", "fold_in",
-           "normal", "randint", "random_bits", "split", "threefry_2x32",
-           "uniform"]
+__all__ = ["KEY_DTYPE", "PRNGKey", "bernoulli", "categorical", "erf_inv",
+           "fold_in", "normal", "permutation", "randint", "random_bits",
+           "split", "threefry_2x32", "uniform"]

@@ -5,10 +5,12 @@ Two execution modes, matching the paper's comparison axis:
   - `train_compiled`: env stepping through the device-resident `EnvPool`
     (on `env_backend="cuda"` one megastep launch per training step, and on
     a pixel id the raster kernel's launches), replay and learning all on the
-    device, the CaiRL execution model. The JAX package scans the step
-    inside one compiled program; here each step is a sequence of launches
+    device, the CaiRL execution model. Each step is a sequence of launches
     from the host that never waits for the device: no `.item()`, no branch
     on a device value, the warm-up gate and the target sync as selects.
+    So `fused=True` can capture the steps into a CUDA graph and replay it
+    (train/fused.py), the port's counterpart of the JAX package's one
+    donated program.
   - `train_host`: the same learner, but the environment is an interpreted
     host object stepped one transition at a time — the AI-Gym execution
     model. Fig. 2 compares the wall-clock of the two.
@@ -154,10 +156,16 @@ def value_and_grad(loss_fn, params):
 
 def make_learn_step(apply_fn, cfg: DQNConfig):
     """The learner update shared by both execution modes: the TD loss's
-    value and gradients over the param tree, then Adam."""
-    optimizer = Adam(lr=cfg.lr)
+    value and gradients over the param tree, then Adam.
 
-    def learn(params, target, opt, batch):
+    `lr` overrides `cfg.lr` at call time: a fleet (train/fused.py) passes
+    each row's as a 0-dim float32 tensor, which rounds as the solo run's
+    Python float does, so the update is the same bit for bit; `lr=None`
+    keeps `cfg.lr`.
+    """
+
+    def learn(params, target, opt, batch, lr=None):
+        optimizer = Adam(lr=cfg.lr if lr is None else lr)
         loss_fn = lambda p: _td_loss(apply_fn, p, target, batch, cfg.discount)
         with f32_convs():    # the backward's convolutions too
             loss, grads = value_and_grad(loss_fn, params)
@@ -178,9 +186,11 @@ STAGES = ("dqn::act", "dqn::pool_step", "dqn::replay", "dqn::learn",
 
 
 def make_train_step(env: Env, apply_fn, cfg: DQNConfig, device=None):
-    """One environment-interaction + learn step, `step_fn(state) -> (state,
-    metrics)`; `train_compiled` runs it `steps` times. Its layers run under
-    the `STAGES` ranges.
+    """One environment-interaction + learn step, `step_fn(state, lr=None)
+    -> (state, metrics)`; `train_compiled` runs it `steps` times, and a
+    fleet passes each row's `lr` through to the learner (make_learn_step).
+    Its layers run under the `STAGES` ranges, which record only when the
+    step runs eagerly: a CUDA graph's replay passes no range.
 
     The ring in `state.replay` is written in place (see rl/replay.py).
     """
@@ -188,7 +198,7 @@ def make_train_step(env: Env, apply_fn, cfg: DQNConfig, device=None):
     learn = make_learn_step(apply_fn, cfg)
     n_actions = env.action_space.n
 
-    def step_fn(state: DQNState):
+    def step_fn(state: DQNState, lr=None):
         with record_function("dqn::act"):
             key, k_eps, k_act, k_env, k_sample = R.split(state.key, 5)
             eps = _epsilon(cfg, state.step)
@@ -216,7 +226,7 @@ def make_train_step(env: Env, apply_fn, cfg: DQNConfig, device=None):
         # learn every step; the warm-up gate selects the result
         with record_function("dqn::learn"):
             new_params, new_opt, loss = learn(state.params, state.target,
-                                              state.opt, batch)
+                                              state.opt, batch, lr=lr)
 
         with record_function("dqn::select"):
             can_learn = replay.size >= cfg.learn_start
@@ -245,14 +255,18 @@ def train_compiled(env: Env, cfg: DQNConfig, steps: int, key: torch.Tensor,
 
     `chunk` groups the steps into dispatches of that many (full chunks and
     one remainder); the key chain lives in the state, so it never changes
-    the result. `fused=True` (one donated program per chunk in the JAX
-    package) comes with ROADMAP A10.
+    the result. `fused=True` runs the same step through
+    `train.fused.run_fused`: on the card, steps captured into a CUDA graph
+    and replayed with the carry updated in place; the result is the
+    host-alternating run's, bit for bit.
     """
-    if fused:
-        raise NotImplementedError("train_compiled(fused=True) comes with the "
-                                  "fused trainer (ROADMAP A10)")
     state, apply_fn = dqn_init(env, cfg, key, device)
     step_fn = make_train_step(env, apply_fn, cfg, state.step.device)
+    if fused:
+        from repro_torch.train.fused import run_fused
+
+        state, metrics = run_fused(step_fn, state, steps, chunk)
+        return state, apply_fn, metrics
     chunk = min(chunk or steps, steps)
 
     def run_chunk(state, n):
@@ -348,27 +362,31 @@ def greedy_returns(env: Env, apply_fn, params, key: torch.Tensor,
     return rets
 
 
-def golden_checksums(env: Env, state: DQNState, apply_fn) -> dict:
+def golden_checksums(env: Env, state, apply_fn) -> dict:
     """A trained state reduced to the fields that the training goldens
-    (tests/golden/train_dqn_*.json) hold: f64 sums of the params and the
-    ring, the key, the ring's pointers, and greedy returns from key 123 on
-    the state's device."""
+    (tests/golden/train_*.json) hold: f64 sums of the params, the key,
+    greedy returns from key 123 on the state's device and, for a state
+    with a ring (DQN's; PPO's has none), the ring's sums and pointers.
+    `apply_fn(params, obs)` gives the values the greedy action maximises
+    (PPO's: its logits)."""
     f64sum = lambda x: float(x.double().sum())
     leaves = tree_leaves(state.params)
     rets = greedy_returns(env, apply_fn, state.params, R.PRNGKey(123),
                           episodes=4, max_steps=100,
-                          device=state.step.device)
-    r = state.replay
-    return {"param_sum": sum(f64sum(x) for x in leaves),
-            "param_abs_sum": sum(f64sum(x.abs()) for x in leaves),
-            "final_key": [int(v) for v in state.key],
-            "last_return_mean": f64sum(state.last_return)
-            / state.last_return.numel(),
-            "eval_return_mean": float(rets.double().mean()),
-            "replay_ptr": int(r.ptr), "replay_size": int(r.size),
-            "replay_obs_sum": f64sum(r.obs),
-            "replay_reward_sum": f64sum(r.reward),
-            "replay_done_sum": f64sum(r.done)}
+                          device=state.key.device)
+    got = {"param_sum": sum(f64sum(x) for x in leaves),
+           "param_abs_sum": sum(f64sum(x.abs()) for x in leaves),
+           "final_key": [int(v) for v in state.key],
+           "last_return_mean": f64sum(state.last_return)
+           / state.last_return.numel(),
+           "eval_return_mean": float(rets.double().mean())}
+    if hasattr(state, "replay"):
+        r = state.replay
+        got.update(replay_ptr=int(r.ptr), replay_size=int(r.size),
+                   replay_obs_sum=f64sum(r.obs),
+                   replay_reward_sum=f64sum(r.reward),
+                   replay_done_sum=f64sum(r.done))
+    return got
 
 
 # -- carrying the JAX package's params and state across -----------------------

@@ -44,19 +44,25 @@ CONV_SPECS = [  # (kernel_h, kernel_w, stride) per conv layer
 
 @contextlib.contextmanager
 def f32_convs():
-    """cuDNN convolutions in float32, not TF32, inside the block.
+    """cuDNN convolutions in float32, not TF32, and by deterministic
+    algorithms, inside the block.
 
     PyTorch lets cuDNN run float32 convolutions in TF32 by default, which
-    is far outside the port's 1e-5 contract. The caller's setting is put
-    back on exit. (`torch.backends.cudnn.flags` is not used: it resets
-    every flag it is not given, `enabled` to False among them.)
+    is far outside the port's 1e-5 contract, and pick algorithms whose
+    weight gradients sum in a varying order: two runs of the Pong-v0 CNN
+    from one seed then part at the first learning step, and a fused run
+    cannot equal its host-alternating run bit for bit. The caller's
+    settings are put back on exit. (`torch.backends.cudnn.flags` is not
+    used: it resets every flag it is not given, `enabled` to False among
+    them.)
     """
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = False, True
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = saved
+        cudnn.allow_tf32, cudnn.deterministic = saved
 
 
 def _scale(fan_in: int) -> float:
@@ -132,8 +138,8 @@ def cnn_apply(params, x: torch.Tensor, activation: str = "elu"):
 
     The input layout is recovered from the first conv's fan-in: cin == 1
     means plain (H, W) frames, cin > 1 means an N-frame stack whose leading
-    axis maps to input channels. The convolutions run in float32
-    (`f32_convs`), never TF32.
+    axis maps to input channels. The convolutions run in float32 by
+    deterministic algorithms (`f32_convs`), never TF32.
     """
     act = Activation[activation]
     cin = params["convs"][0]["w"].shape[2]

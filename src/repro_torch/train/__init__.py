@@ -1,15 +1,18 @@
 """train subsystem (port of `repro.train`).
 
-`repro_torch.train.optim` holds the optimizers, schedules and losses the
-learners share. The fused trainer and fleets (`fused`, `fleet`) come with
-ROADMAP A10. Exports resolve lazily (PEP 562), as in the JAX package.
+`repro_torch.train.fused` is the fused trainer: train steps captured into
+CUDA graphs and replayed with the carry updated in place, and seeds × lr
+fleets (`fleet`). `repro_torch.train.optim` holds the optimizers,
+schedules and losses the learners share. Exports resolve lazily (PEP 562),
+as in the JAX package.
 """
 
-__all__ = ["Adam", "AdamState", "SGD", "clip_by_global_norm",
-           "cosine_schedule", "global_norm", "huber_loss", "linear_schedule",
-           "softmax_cross_entropy"]
+#: public surface: the JAX package's `repro.train` less `lower_train_chunk`,
+#: which lowers XLA programs (ROADMAP A14)
+__all__ = ["Fleet", "GOLDEN_TRAIN_IDS", "fleet", "fleet_grid",
+           "fused_train_chunk", "golden_train_setup", "run_fused"]
 
-_LAZY = {name: ("repro_torch.train.optim", name) for name in __all__}
+_LAZY = {name: ("repro_torch.train.fused", name) for name in __all__}
 
 
 def __getattr__(name):

@@ -127,6 +127,21 @@ def test_cnn_refuses_ambiguous_and_bad_shapes():
         TN.cnn_init(R.PRNGKey(0), (36,))
 
 
+def test_f32_convs_pins_float32_and_deterministic_algorithms():
+    """Inside the block cuDNN runs float32 (no TF32) by deterministic
+    algorithms, so a CNN run repeats bit for bit; the caller's settings
+    come back on exit."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = True, False
+    try:
+        with TN.f32_convs():
+            assert (cudnn.allow_tf32, cudnn.deterministic) == (False, True)
+        assert (cudnn.allow_tf32, cudnn.deterministic) == (True, False)
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = saved
+
+
 # -- replay ---------------------------------------------------------------------
 
 def _transitions(rng, b, obs_dim=3):

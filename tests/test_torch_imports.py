@@ -1,5 +1,7 @@
 """The port stands alone: `repro_torch` imports neither JAX nor any module of
-the JAX package `repro`, and runs on the CUDA card unless told otherwise."""
+the JAX package `repro`, and runs on the CUDA card unless told otherwise:
+its entry points (`make_vec`, `cairl.make`, the DQN and PPO trainers, the
+fused trainer and fleets) raise without a card when no device is named."""
 import ast
 import os
 import pathlib
@@ -26,7 +28,9 @@ bad = sorted(m for m in sys.modules
 print(len(names), ",".join(bad))
 for mod in ("envs.grid.snake", "envs.puzzle", "envs.multitask", "models.lm",
             "kernels.attention.ops", "serving.engine", "rl.dqn",
-            "train.optim", "envs.baseline_python.classic"):
+            "train.optim", "envs.baseline_python.classic", "cairl",
+            "core.gym_compat", "core.runner", "pool.host", "runtime.straggler",
+            "rl.ppo", "train.fused", "sustainability.impact"):
     assert "repro_torch." + mod in names, mod
 """
 
@@ -36,7 +40,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, text=True,
                          capture_output=True, timeout=120, check=True).stdout
     count, _, bad = out.strip().partition(" ")
-    assert int(count) >= 79, out
+    assert int(count) >= 89, out
     assert bad == "", f"repro_torch pulled in {bad}"
 
 
@@ -63,22 +67,49 @@ def test_make_vec_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_dqn_defaults_to_cuda_and_raises_without_it(monkeypatch):
-    """The learner's entry points run on the card unless told otherwise,
-    and there is no fused trainer yet."""
+    """The learners' entry points run on the card unless told otherwise:
+    DQN (host-alternating and fused), PPO, fleets, the Gym shim and the
+    runners (a key made on the CPU included). Told the CPU, the fused DQN
+    trainer gives the host-alternating state."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch import cairl
     from repro_torch import random as R
-    from repro_torch.rl import dqn
+    from repro_torch.core import runner
+    from repro_torch.rl import dqn, ppo
     from repro_torch.rl.replay import replay_init
+    from repro_torch.train import fleet
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     env, cfg = repro_torch.make("CartPole-v1"), dqn.DQNConfig(memory_size=8)
+    pcfg = ppo.PPOConfig(num_envs=2, rollout_len=2)
+
+    def policy(params, obs, keys):
+        return torch.zeros(obs.shape[:-1], dtype=torch.int32,
+                           device=obs.device)
+
     for entry in (lambda: dqn.train_compiled(env, cfg, 1, R.PRNGKey(0)),
+                  lambda: dqn.train_compiled(env, cfg, 1, R.PRNGKey(0),
+                                             fused=True),
                   lambda: dqn.dqn_init(env, cfg, R.PRNGKey(0)),
-                  lambda: replay_init(8, (4,))):
+                  lambda: replay_init(8, (4,)),
+                  lambda: cairl.make("CartPole-v1"),
+                  lambda: ppo.train(env, pcfg, 1, R.PRNGKey(0)),
+                  lambda: fleet(env, [0], 1, cfg=cfg),
+                  lambda: runner.rollout(env, policy, None, 1, 2,
+                                         R.PRNGKey(0)),
+                  lambda: runner.rollout_random(env, R.PRNGKey(0), 1, 2),
+                  lambda: runner.rollout_random_fast(env, R.PRNGKey(0), 1, 2),
+                  lambda: runner.episode_return(env, policy, None,
+                                                R.PRNGKey(0), 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        dqn.train_compiled(env, cfg, 1, R.PRNGKey(0), fused=True,
-                           device="cpu")
+    cfg = dqn.DQNConfig(memory_size=8, learn_start=2, batch_size=2)
+    fused, _, fm = dqn.train_compiled(env, cfg, 5, R.PRNGKey(0), fused=True,
+                                      device="cpu")
+    host, _, hm = dqn.train_compiled(env, cfg, 5, R.PRNGKey(0), device="cpu")
+    for a, b in zip(tree_leaves((fused, fm)), tree_leaves((host, hm))):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="needs a CUDA device"):
         dqn.dqn_init(env, dqn.DQNConfig(memory_size=8, env_backend="cuda"),
                      R.PRNGKey(0), device="cpu")

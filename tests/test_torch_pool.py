@@ -175,12 +175,16 @@ def test_load_state_dict_rejects_other_widths():
 
 
 def test_unported_surfaces_raise_with_roadmap_item():
-    """The surfaces still to port raise naming their ROADMAP item; the
-    render rollout, ported since, gives the JAX pool's last frame."""
+    """The surfaces still to port raise naming their ROADMAP item (the
+    async pool, A11; mesh pools, A12); the render rollout and the host
+    pool, ported since, give the JAX pool's last frame and a `HostPool`."""
     with pytest.raises(NotImplementedError, match="A11"):
         repro_torch.make_vec("CartPole-v1", 2, backend="async", device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
-        repro_torch.make_vec("CartPole-v1", 2, host=True, device="cpu")
+        repro_torch.make_vec("CartPole-v1", 2, mesh=object(), device="cpu")
+    host = repro_torch.make_vec("CartPole-v1", 2, host=True)
+    assert type(host).__name__ == "HostPool" and len(host) == 2
+    host.close()
     with jax.threefry_partitionable(False):
         j_rew, j_eps, j_frame = jax_make_vec(
             "CartPole-v1", 2, backend="jnp").rollout(
