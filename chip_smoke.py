@@ -107,6 +107,33 @@ repository around it. Phases, each printing one JSON line with its seconds:
            updates replayed with host syncs made errors: updates/s, env
            steps/s, megastep launches (128 an update), capture seconds and
            graph nodes
+  async    the async pool and the env service on the card: the 28 committed
+           goldens through send/recv (tests/test_golden.py::async_trace),
+           one megastep launch per recv on the fused ids, two raster
+           launches per recv on the pixel ids; EnvService at
+           benchmarks/fig_async.py's traffic (CartPole-v1, 256 slots, 2,000
+           sessions, session_budgets(2000, seed=0)): useful steps/s, recv
+           p50/p99, occupancy, one launch per tick; AsyncEnvPool("Pong-v0",
+           4096) with alternate halves ready for 256 recvs: ms and bytes
+           copied to the host per recv, and one recv's masked step, from
+           the staged actions to the output copy, with host syncs made
+           errors; then, for every fused id, the masked "cuda" step against
+           the masked "torch" step (its plain twin) at 65,536 slots (the
+           pixel ids at 4,096), about half the lanes active: done,
+           truncated and keys exact, the grid bodies bit for bit, the
+           inactive lanes' rows unchanged bit for bit
+  runtime  the fault-tolerant runtime on the card: benchmarks/fig_fault.py's
+           cell (CartPole-v1, B 1,024, 2,000 supervised steps, snapshots
+           off and every 16: steps/s, a snapshot's seconds); kill-and-resume
+           at B = 65,536 for Maze-v0 and CartPole-v1 (snapshots every 64, a
+           device loss at step 96, recover()), the resumed steps and final
+           state bit for bit the uninterrupted run's, with a snapshot's
+           seconds and its gather's; a 2-shard ShardedEnvPool over
+           (cuda:0, cuda:0) recovered onto 1 shard, bit for bit a 1-shard
+           run from the same snapshot; EnvService drained to a checkpoint
+           and restored, equal to an uninterrupted oracle; a checkpoint
+           written from the card restored into a device="cpu" pool, both
+           continuing bit for bit on the grid body
   numbers  env steps/s per id: classic and grid at B = 65,536 (CartPole-v1
            also at B = 4,096), Pong-v0 and Breakout-v0 at B = 4,096, K = 8,
            Multitask-v0 at B = 65,536, Maze-px and FrozenLake-px at 4,096
@@ -1956,6 +1983,641 @@ def phase_unit_sweep(torch, device, units=(1, 2, 4, 8, 16, 32), steps=512,
     return rows
 
 
+# -- the async pool, the env service and the fault-tolerant runtime ----------
+
+#: the masked-step check: 65,536 slots, the pixel ids at the pixel path's
+#: 4,096 (a 65,536-slot frame table and its plain twin's outputs would not
+#: fit beside the selects); steps per id, the first with every lane active
+MASKED_B, MASKED_STEPS, MASKED_PIXEL_STEPS = 65536, 16, 8
+#: benchmarks/fig_async.py's defaults: CartPole-v1, 256 slots, 2,000
+#: sessions with budgets from session_budgets(2000, seed=0)
+SERVICE_ID, SERVICE_SLOTS, SERVICE_SESSIONS = "CartPole-v1", 256, 2000
+#: the pixel path at full width: alternate halves ready for 256 recvs
+ASYNC_PIXEL_ID, ASYNC_PIXEL_SLOTS, ASYNC_PIXEL_RECVS = "Pong-v0", 4096, 256
+#: benchmarks/fig_fault.py's defaults: CartPole-v1, B 1,024, 2,000 steps,
+#: snapshots off and every 16
+FAULT_ID, FAULT_B, FAULT_STEPS, FAULT_EVERY = "CartPole-v1", 1024, 2000, 16
+SNAPSHOT_REPS = 5
+#: kill-and-resume: a device loss at step 96, snapshots every 64
+KILL_IDS, KILL_B, KILL_EVERY, KILL_AT, KILL_END = (
+    ("Maze-v0", "CartPole-v1"), 65536, 64, 96, 128)
+#: the 2-to-1-shard re-mesh, the drained service, the cross-device restore
+REMESH_B, REMESH_EVERY, REMESH_KILL, REMESH_END = 65536, 8, 12, 16
+DRAIN_SLOTS, DRAIN_SESSIONS, DRAIN_TICKS = 64, 300, 20
+XDEV_ID, XDEV_B, XDEV_STEPS = "Maze-v0", 1024, 32
+
+
+def session_budgets(num_sessions: int, seed: int = 0, short: int = 8,
+                    long: int = 128):
+    """benchmarks/fig_async.py's long-tailed budget mixture: mostly 1 to
+    `short` steps, a tenth `short` to `long` (a copy: this script imports
+    nothing of the JAX package)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    budgets = rng.integers(1, short + 1, size=num_sessions)
+    tail = rng.random(num_sessions) < 0.1
+    budgets[tail] = rng.integers(short, long + 1, size=int(tail.sum()))
+    return [int(b) for b in budgets]
+
+
+def _host_actions(space, rng, n):
+    """n actions of `space` drawn on the host, as a client sends them."""
+    import numpy as np
+
+    if hasattr(space, "n"):
+        return rng.integers(0, space.n, n).astype(np.int32)
+    return rng.uniform(-2.0, 2.0, (n,) + tuple(space.shape)).astype(np.float32)
+
+
+def _tree_equal(torch, a, b) -> bool:
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _np_tree_equal(a, b) -> bool:
+    import numpy as np
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(np.array_equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def async_goldens(torch, device):
+    """The 28 committed goldens through send/recv on the card
+    (tests/test_golden.py::async_trace): `reset(seed)`, then per step
+    `send` and `recv(key=fold_in(key, t))`. One megastep launch per recv
+    on the fused ids, two raster launches per recv and one for the reset on
+    the pixel ids."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch import random as R
+    from repro_torch.core.spaces import sample_batch
+
+    worst, backends, launches = {}, {}, {}
+    for env_id in GOLDEN_IDS:
+        want = json.loads((ROOT / "tests" / "golden" / f"{env_id}.json")
+                          .read_text())
+        b, steps = want["batch"], want["steps"]
+        pool = repro_torch.make_vec(env_id, b, backend="async", device=device)
+        backends[env_id] = pool.backend
+        seed = sum(map(ord, env_id))
+        key = R.PRNGKey(seed, device)
+        reset_counts()
+        obs0 = pool.reset(seed=seed)
+        rows = []
+        for t in range(steps):
+            a = sample_batch(pool.action_space, R.fold_in(key, 1000 + t), b)
+            pool.send(a, np.arange(b))
+            obs, rew, done, _, _ = pool.recv(key=R.fold_in(key, t))
+            rows.append([float(np.asarray(obs, np.float64).sum()),
+                         float(np.asarray(rew, np.float64).sum()),
+                         int(np.asarray(done).sum())])
+        got = read_counts()
+        pixel = len(pool.observation_space.shape) >= 2
+        expect = {"megastep": steps if pool.backend == "cuda" else 0,
+                  "raster": 2 * steps + 1 if pixel else 0, "flash": 0}
+        if got != expect:
+            raise AssertionError(f"{env_id}: async launches {got}, want "
+                                 f"{expect}")
+        launches[env_id] = got
+        np.testing.assert_allclose(float(obs0.double().sum()),
+                                   want["reset_obs_sum"], rtol=GOLDEN_TOL,
+                                   atol=GOLDEN_TOL, err_msg=env_id)
+        np.testing.assert_allclose(rows, want["rows"], rtol=GOLDEN_TOL,
+                                   atol=GOLDEN_TOL, err_msg=f"{env_id} async")
+        worst[env_id] = float(np.abs(np.subtract(rows, want["rows"])).max())
+    total = {n: sum(c[n] for c in launches.values()) for n in launches[
+        GOLDEN_IDS[0]]}
+    return {"max_abs_err": worst, "backends": backends,
+            "launches": total}
+
+
+def masked_check(torch, device, env_id, b, steps, seed):
+    """The masked "cuda" step against the masked "torch" step (its plain
+    twin) on the card, through two async pools from one reset: the first
+    step with every lane active, then about half the lanes each step. Done,
+    truncated and the keys exact, the grid bodies bit for bit, the rest at
+    1e-5/1e-6; the inactive lanes' rows (state, key, obs) bit for bit what
+    they were. Launches here are comparisons, not main-path launches."""
+    import numpy as np
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.pool import AsyncEnvPool
+
+    rng = np.random.default_rng(seed)
+    pools = {be: AsyncEnvPool(env_id, b, backend=be, device=device)
+             for be in ("cuda", "torch")}
+    for pool in pools.values():
+        pool.reset(seed=seed)
+    grid = env_id in GRID_IDS
+    err, resets, idle_lanes = 0.0, 0, 0
+    for t in range(steps):
+        ids = (np.arange(b) if t == 0
+               else np.flatnonzero(rng.random(b) < 0.5))
+        acts = _host_actions(pools["cuda"].action_space, rng, len(ids))
+        cuda = pools["cuda"]
+        idle = torch.ones(b, dtype=torch.bool, device=device)
+        idle[torch.from_numpy(ids).to(device)] = False
+        before = [x[idle].clone() for x in tree_leaves(cuda._state)
+                  + [cuda._obs]]
+        out = {}
+        for be, pool in pools.items():
+            pool.send(acts, ids)
+            out[be] = pool.recv()
+        got, want = out["cuda"], out["torch"]
+        if not np.array_equal(got[4], want[4]):
+            raise AssertionError(f"{env_id}: recv ids differ")
+        fields = {"obs": (got[0], want[0]), "reward": (got[1], want[1]),
+                  "done": (got[2], want[2]),
+                  **{k: (got[3][k], want[3][k]) for k in want[3]}}
+        for what, (g, w) in fields.items():
+            if g.dtype.kind != "f" or grid:
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"{env_id} step {t}: {what} differs "
+                                         "from the plain twin")
+            else:
+                np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL,
+                                           err_msg=f"{env_id} {what} {t}")
+                err = max(err, float(np.abs(g - w).max()))
+        if not torch.equal(cuda._state.key, pools["torch"]._state.key):
+            raise AssertionError(f"{env_id} step {t}: keys differ")
+        if grid and not _tree_equal(torch, cuda._state,
+                                    pools["torch"]._state):
+            raise AssertionError(f"{env_id} step {t}: states differ")
+        after = [x[idle] for x in tree_leaves(cuda._state) + [cuda._obs]]
+        if not all(torch.equal(x, y) for x, y in zip(before, after)):
+            raise AssertionError(f"{env_id} step {t}: an inactive lane moved")
+        resets += int(got[2].sum())
+        idle_lanes += int(idle.sum())
+    return {"id": env_id, "B": b, "steps": steps, "resets": resets,
+            "idle_lane_steps": idle_lanes, "max_abs_err": err}
+
+
+def service_run(torch, device):
+    """fig_async.py's traffic through EnvService on the card: useful
+    steps/s, recv p50/p99, occupancy, and one megastep launch per tick."""
+    from repro_torch.serving import EnvService, Session
+
+    budgets = session_budgets(SERVICE_SESSIONS, seed=0)
+    svc = EnvService(SERVICE_ID, SERVICE_SLOTS, device=device)
+    svc.submit(Session(sid=-1, seed=0, num_steps=1))    # warm, as fig_async
+    svc.run()
+    svc.ticks = svc.steps_served = 0
+    svc.recv_latencies.clear()
+    for i, b in enumerate(budgets):
+        svc.submit(Session(sid=i, seed=i, num_steps=b))
+    reset_counts()
+    t0 = time.perf_counter()
+    svc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = svc.stats()
+    if st["running"] or st["queued"] or svc.steps_served != sum(budgets):
+        raise AssertionError(f"service left work: {st}")
+    if launches != {"megastep": st["ticks"], "raster": 0, "flash": 0}:
+        raise AssertionError(f"service launches {launches}, ticks "
+                             f"{st['ticks']}")
+    import numpy as np
+
+    ids = np.arange(0, SERVICE_SLOTS, 2)
+    for sid in range(SERVICE_SLOTS):
+        svc.pool.admit(seed=sid)
+    split = recv_split(torch, svc.pool, ids, np.ones(len(ids), np.int32))
+    return {"id": SERVICE_ID, "slots": SERVICE_SLOTS,
+            "recv_split_ms_half_ready": split,
+            "sessions": SERVICE_SESSIONS, "steps_served": svc.steps_served,
+            "steps_per_s": svc.steps_served / wall,
+            "recv_p50_ms": 1e3 * st["recv_p50_s"],
+            "recv_p99_ms": 1e3 * st["recv_p99_s"], "ticks": st["ticks"],
+            "occupancy": svc.steps_served / (st["ticks"] * SERVICE_SLOTS),
+            "wall_s": wall, "launches": launches}
+
+
+RECV_SPLIT_RUNS, RECV_PROFILED = 16, 8
+
+
+def recv_split(torch, pool, ids, acts, runs=RECV_SPLIT_RUNS):
+    """A recv's parts, each ended by a synchronize, median ms over `runs`
+    recvs of the same ready set: `_stage_ready` (the host copies of the
+    ready actions and ids), `_step_ready` (the masked step, the gather and
+    the pack on the card) and `_fetch` (the one copy to the host); then
+    whole recvs under torch.profiler: device launches a recv (kernels and
+    copies), device-busy ms and the idle share."""
+    parts = {"stage": [], "step_gather_pack": [], "copy_to_host": []}
+    with uncounted():
+        for _ in range(runs):
+            pool.send(acts, ids)
+            with pool._cond:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, staged = pool._stage_ready(None)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                packed = pool._step_ready(staged)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                pool._fetch(packed)
+                t3 = time.perf_counter()
+            for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[k].append(1e3 * dt)
+
+        def one_recv():
+            pool.send(acts, ids)
+            pool.recv()
+
+        prof = profile_window(torch, one_recv, RECV_PROFILED)
+    return {**{k: statistics.median(v) for k, v in parts.items()},
+            "profiled": prof}
+
+
+def async_pixel_run(torch, device):
+    """AsyncEnvPool(Pong-v0, 4,096) with alternate halves ready for 256
+    recvs: ms per recv (host clock, the one output copy included) and
+    bytes copied to the host per recv; then one recv's masked step, from
+    the staged actions up to the output copy, with host syncs made
+    errors."""
+    import numpy as np
+
+    from repro_torch.pool import AsyncEnvPool
+
+    rng = np.random.default_rng(3)
+    b = ASYNC_PIXEL_SLOTS
+    pool = AsyncEnvPool(ASYNC_PIXEL_ID, b, device=device)
+    halves = (np.arange(b // 2), np.arange(b // 2, b))
+    reset_counts()
+    pool.reset(seed=0)
+    times, nbytes = [], []
+    for i in range(ASYNC_PIXEL_RECVS):
+        ids = halves[i % 2]
+        pool.send(rng.integers(0, 3, len(ids)).astype(np.int32), ids)
+        t0 = time.perf_counter()
+        obs, rew, done, info, got = pool.recv()
+        times.append(time.perf_counter() - t0)
+        if obs.shape != (len(ids), 4, 84, 84) or not np.array_equal(got, ids):
+            raise AssertionError(f"pixel recv gave {obs.shape}, ids {got[:4]}")
+        nbytes.append(obs.nbytes + rew.nbytes + done.nbytes
+                      + sum(v.nbytes for v in info.values()))
+    launches = read_counts()
+    want = {"megastep": ASYNC_PIXEL_RECVS,
+            "raster": 2 * ASYNC_PIXEL_RECVS + 1, "flash": 0}
+    if launches != want:
+        raise AssertionError(f"pixel path launches {launches}, want {want}")
+    with uncounted():
+        pool.send(np.ones(b // 2, np.int32), halves[0])
+        with pool._cond:
+            ids, staged = pool._stage_ready(None)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                packed = pool._step_ready(staged)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            obs = pool._fetch(packed)[0]
+        if not np.isfinite(obs).all():
+            raise AssertionError("non-finite frames")
+    per_recv = statistics.median(nbytes)
+    split = recv_split(torch, pool, halves[0],
+                       np.ones(b // 2, np.int32))
+    return {"id": ASYNC_PIXEL_ID, "slots": b, "ready_per_recv": b // 2,
+            "recv_split_ms": split,
+            "recvs": ASYNC_PIXEL_RECVS,
+            "recv_ms_median": 1e3 * statistics.median(times),
+            "recv_ms_p99": 1e3 * sorted(times)[int(0.99 * (len(times) - 1))],
+            "bytes_to_host_per_recv": per_recv,
+            "whole_table_bytes_per_recv": per_recv * 2,
+            "launches": launches, "sync_free_masked_step": True}
+
+
+def phase_async(torch, device):
+    from repro_torch.kernels.envstep import ops
+
+    t0 = time.perf_counter()
+    ops.fresh_rows.calls = 0
+    paths = {}
+    goldens = async_goldens(torch, device)
+    paths["goldens"] = goldens["launches"]
+    service = service_run(torch, device)
+    paths["service"] = service["launches"]
+    pixel = async_pixel_run(torch, device)
+    paths["pixel"] = pixel["launches"]
+    if fresh_rows_calls():
+        raise AssertionError(f"{fresh_rows_calls()} calls of fresh_rows on "
+                             "the async CUDA path")
+    masked = []
+    with uncounted():
+        for i, env_id in enumerate(IDS + PIXEL_IDS + GRID_IDS):
+            pixel_id = env_id in PIXEL_IDS
+            masked.append(masked_check(
+                torch, device, env_id, B_PIXEL if pixel_id else MASKED_B,
+                MASKED_PIXEL_STEPS if pixel_id else MASKED_STEPS, 40 + i))
+    launches = {n: sum(p[n] for p in paths.values()) for n in
+                ("megastep", "raster")}
+    emit({"phase": "async", "seconds": time.perf_counter() - t0,
+          "goldens": {k: goldens[k] for k in ("max_abs_err", "backends")},
+          "service": service, "pixel": pixel, "masked": masked,
+          "launches_per_path": paths, "launches": launches})
+    return launches, max(r["max_abs_err"] for r in masked)
+
+
+def fault_cell(torch, device, root):
+    """fig_fault.py's default cell on the megastep: supervised steps/s with
+    snapshots off and every 16, and a blocking snapshot's seconds."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.runtime import RolloutSupervisor
+
+    rng = np.random.default_rng(0)
+    acts = rng.integers(0, 2, (FAULT_STEPS, FAULT_B)).astype(np.int32)
+    rows, launches = {}, {"megastep": 0, "raster": 0, "flash": 0}
+    for every in (0, FAULT_EVERY):
+        pool = repro_torch.make_vec(FAULT_ID, FAULT_B, device=device)
+        sup = RolloutSupervisor(pool, f"{root}/fault_{every}",
+                                snapshot_every=every)
+        sup.reset(seed=0)
+        sup.step(acts[0])                 # warm, as fig_fault does
+        sup.reset(seed=0)
+        reset_counts()
+        t0 = time.perf_counter()
+        for t in range(FAULT_STEPS):
+            sup.step(acts[t])
+        torch.cuda.synchronize()
+        sup.manager.wait()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        if got["megastep"] != FAULT_STEPS:
+            raise AssertionError(f"fault cell launches {got}")
+        launches = {n: launches[n] + got[n] for n in launches}
+        rows[f"snapshot_every_{every}"] = {
+            "snapshots": sup.snapshots, "wall_s": wall,
+            "steps_per_s": FAULT_STEPS * FAULT_B / wall}
+    with uncounted():
+        sup.snapshot(blocking=True)       # warm the save path
+        t0 = time.perf_counter()
+        for _ in range(SNAPSHOT_REPS):
+            sup.snapshot(blocking=True)
+        snap_s = (time.perf_counter() - t0) / SNAPSHOT_REPS
+    sup.close()
+    off, on = rows["snapshot_every_0"], rows[f"snapshot_every_{FAULT_EVERY}"]
+    return {"id": FAULT_ID, "B": FAULT_B, "steps": FAULT_STEPS,
+            "backend": pool.backend, **rows, "snapshot_s": snap_s,
+            "overhead_pct": 100.0 * (1 - on["steps_per_s"]
+                                     / off["steps_per_s"])}, launches
+
+
+def kill_and_resume(torch, device, env_id, root):
+    """An uninterrupted run and a supervised one (snapshots every 64, a
+    device loss at step 96, `recover()`, the replay from step 64) at
+    B = 65,536 on the megastep: the resumed steps and the final state bit
+    for bit the uninterrupted run's. Also a snapshot's seconds (gather +
+    np.savez) and the gather's alone."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch import random as R
+    from repro_torch.core.spaces import sample_batch
+    from repro_torch.runtime import (DeviceLossError, FaultInjector,
+                                     RolloutSupervisor)
+
+    key = R.PRNGKey(7, device)
+    space = repro_torch.make(env_id).action_space
+
+    def step(p, t):
+        out = p.step(sample_batch(space, R.fold_in(key, 1000 + t), KILL_B),
+                     key=R.fold_in(key, t))
+        return (out[0], out[1], out[2], out[3])
+
+    with uncounted():
+        ref_pool = repro_torch.make_vec(env_id, KILL_B, device=device)
+        ref_pool.reset(seed=7)
+        ref = {}
+        for t in range(KILL_END):
+            out = step(ref_pool, t)
+            if t >= KILL_EVERY:
+                ref[t] = out
+        ref_final = ref_pool.state_dict()
+        del ref_pool
+
+    clk = [0.0]
+    inj = FaultInjector(clock=lambda: clk[0])
+    sup = RolloutSupervisor(
+        repro_torch.make_vec(env_id, KILL_B, device=device),
+        f"{root}/kill_{env_id}", snapshot_every=KILL_EVERY,
+        blocking_snapshots=True, injector=inj)
+    reset_counts()
+    sup.reset(seed=7)
+    t, killed, recovery_s, plan = 0, False, None, None
+    while t < KILL_END:
+        if t == KILL_AT and not killed:
+            inj.schedule(0.5, "device_loss", 1)
+            clk[0] = 1.0
+        try:
+            out = step(sup, t)
+        except DeviceLossError:
+            killed = True
+            t0 = time.perf_counter()
+            plan = sup.recover()
+            recovery_s = time.perf_counter() - t0
+            t = sup.t
+            continue
+        if killed and not _tree_equal(torch, out, ref[t]):
+            raise AssertionError(f"{env_id}: resumed step {t} differs from "
+                                 "the uninterrupted run")
+        t += 1
+    launches = read_counts()
+    steps_run = KILL_AT + (KILL_END - KILL_EVERY)
+    if not killed or plan["restored_step"] != KILL_EVERY:
+        raise AssertionError(f"{env_id}: recovery {plan}")
+    if launches["megastep"] != steps_run:
+        raise AssertionError(f"{env_id}: {launches} for {steps_run} steps")
+    if not _np_tree_equal(sup.pool.state_dict(), ref_final):
+        raise AssertionError(f"{env_id}: final state differs")
+    with uncounted():
+        t0 = time.perf_counter()
+        snap = sup.pool.state_dict()
+        gather_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sup.snapshot(blocking=True)
+        snap_s = time.perf_counter() - t0
+    from torch.utils._pytree import tree_leaves
+
+    sup.close()
+    return {"id": env_id, "B": KILL_B, "backend": sup.pool.backend,
+            "killed_at": KILL_AT, "restored_step": plan["restored_step"],
+            "recovery_s": recovery_s, "snapshot_s": snap_s,
+            "gather_s": gather_s,
+            "snapshot_bytes": int(sum(np.asarray(x).nbytes
+                                      for x in tree_leaves(snap))),
+            "resumed_bit_for_bit": True}, launches
+
+
+def remesh_check(torch, device, root):
+    """A 2-shard ShardedEnvPool over (cuda:0, cuda:0) on the megastep, two
+    launches a step, killed and recovered onto 1 shard: bit for bit a
+    1-shard pool restored from the same snapshot."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch import random as R
+    from repro_torch.pool import ShardedEnvPool
+    from repro_torch.runtime import (DeviceLossError, FaultInjector,
+                                     RolloutSupervisor)
+
+    key = R.PRNGKey(0, device)
+    rng = np.random.default_rng(5)
+    acts = rng.integers(0, 2, (REMESH_END, REMESH_B)).astype(np.int32)
+    card = torch.device("cuda", 0) if device.type == "cuda" else device
+    clk = [0.0]
+    inj = FaultInjector(clock=lambda: clk[0])
+    pool = ShardedEnvPool("CartPole-v1", REMESH_B, mesh=(card, card),
+                          backend="cuda")
+    d = f"{root}/remesh"
+    sup = RolloutSupervisor(pool, d, snapshot_every=REMESH_EVERY,
+                            blocking_snapshots=True, injector=inj)
+    reset_counts()
+    sup.reset(seed=0)
+    for t in range(REMESH_KILL):
+        sup.step(acts[t], key=R.fold_in(key, t))
+    two = read_counts()
+    if two["megastep"] != 2 * REMESH_KILL:
+        raise AssertionError(f"2-shard launches {two}")
+    with uncounted():
+        oracle = RolloutSupervisor(
+            repro_torch.make_vec("CartPole-v1", REMESH_B, device=device), d)
+        oracle.restore(step=REMESH_EVERY)
+        ref = [oracle.step(acts[t], key=R.fold_in(key, t))
+               for t in range(REMESH_EVERY, REMESH_END)]
+    inj.schedule(1.0, "device_loss", 1)
+    clk[0] = 2.0
+    try:
+        sup.step(acts[REMESH_KILL], key=R.fold_in(key, REMESH_KILL))
+        raise AssertionError("the device-loss fault did not fire")
+    except DeviceLossError:
+        plan = sup.recover(n_devices=1)
+    reset_counts()
+    got = [sup.step(acts[t], key=R.fold_in(key, t))
+           for t in range(sup.t, REMESH_END)]
+    one = read_counts()
+    if (sup.pool.n_shards != 1 or plan["restored_step"] != REMESH_EVERY
+            or one["megastep"] != REMESH_END - REMESH_EVERY):
+        raise AssertionError(f"re-mesh {plan}, {one}")
+    if not _tree_equal(torch, got, ref):
+        raise AssertionError("the 1-shard continuation differs from the "
+                             "1-shard run from the same snapshot")
+    sup.close()
+    return {"B": REMESH_B, "mesh_before": [str(card)] * 2,
+            "mesh_after": plan["mesh"], "restored_step": plan["restored_step"],
+            "bit_for_bit": True}, {n: two[n] + one[n] for n in two}
+
+
+def drain_restore_check(torch, device, root):
+    """EnvService drained to a checkpoint mid-serve and restored equals an
+    uninterrupted oracle service, session for session (numpy default
+    policies, their RNG states crossing in meta.json)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.serving import EnvService, Session
+
+    budgets = session_budgets(DRAIN_SESSIONS, seed=1)
+    mk = lambda: [Session(sid=i, seed=i, num_steps=b)
+                  for i, b in enumerate(budgets)]
+    svc = EnvService(SERVICE_ID, DRAIN_SLOTS, device=device)
+    for s in mk():
+        svc.submit(s)
+    reset_counts()
+    for _ in range(DRAIN_TICKS):
+        svc.tick()
+    with CheckpointManager(f"{root}/drain") as mgr:
+        svc.drain_to_checkpoint(mgr, step=svc.ticks)
+    svc2 = EnvService.restore_service(SERVICE_ID, DRAIN_SLOTS,
+                                      CheckpointManager(f"{root}/drain"),
+                                      mk(), device=device)
+    svc2.run()
+    launches = read_counts()
+    with uncounted():
+        oracle = EnvService(SERVICE_ID, DRAIN_SLOTS, device=device)
+        for s in mk():
+            oracle.submit(s)
+        oracle.run()
+    res = lambda s: {i: (x.steps, x.total_reward, x.episodes)
+                     for i, x in s._sessions.items()}
+    served = {**res(svc), **res(svc2)}    # retired before the drain: svc's
+    if served != res(oracle) or len(res(svc2)) == len(budgets):
+        raise AssertionError("the restored service differs from the oracle")
+    return {"slots": DRAIN_SLOTS, "sessions": DRAIN_SESSIONS,
+            "drained_after_ticks": DRAIN_TICKS,
+            "steps_served": oracle.steps_served, "equal_to_oracle": True}, \
+        launches
+
+
+def cross_device_check(torch, device, root):
+    """A checkpoint written from the card restored into a device="cpu"
+    pool; both pools continue bit for bit on the grid body (the kernel and
+    its plain twin agree bit for bit there)."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.runtime import RolloutSupervisor
+
+    rng = np.random.default_rng(9)
+    acts = rng.integers(0, 4, (2 * XDEV_STEPS, XDEV_B)).astype(np.int32)
+    card = repro_torch.make_vec(XDEV_ID, XDEV_B, device=device)
+    sup = RolloutSupervisor(card, f"{root}/xdev", snapshot_every=XDEV_STEPS,
+                            blocking_snapshots=True)
+    reset_counts()
+    sup.reset(seed=4)
+    for t in range(XDEV_STEPS):
+        sup.step(acts[t])
+    host = RolloutSupervisor(repro_torch.make_vec(XDEV_ID, XDEV_B,
+                                                  device="cpu"),
+                             f"{root}/xdev")
+    if host.restore() != XDEV_STEPS or host.pool.device.type != "cpu":
+        raise AssertionError("cross-device restore")
+    for t in range(XDEV_STEPS, 2 * XDEV_STEPS):
+        a, b = sup.step(acts[t]), host.step(acts[t])
+        for x, y in zip(a[:3], b[:3]):
+            if not torch.equal(x.cpu(), y):
+                raise AssertionError(f"card and CPU pools part at step {t}")
+    launches = read_counts()
+    return {"id": XDEV_ID, "B": XDEV_B, "steps_after_restore": XDEV_STEPS,
+            "backends": [sup.pool.backend, host.pool.backend],
+            "bit_for_bit": True}, launches
+
+
+def phase_runtime(torch, device):
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    paths = {}
+    try:
+        fault, paths["fault"] = fault_cell(torch, device, root)
+        kills = []
+        for env_id in KILL_IDS:
+            row, paths[f"kill_{env_id}"] = kill_and_resume(torch, device,
+                                                           env_id, root)
+            kills.append(row)
+        remesh, paths["remesh"] = remesh_check(torch, device, root)
+        drain, paths["drain"] = drain_restore_check(torch, device, root)
+        xdev, paths["cross_device"] = cross_device_check(torch, device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {n: sum(p[n] for p in paths.values()) for n in
+                ("megastep", "raster")}
+    emit({"phase": "runtime", "seconds": time.perf_counter() - t0,
+          "fault": fault, "kill_and_resume": kills, "remesh": remesh,
+          "drain_restore": drain, "cross_device": xdev,
+          "launches_per_path": paths, "launches": launches})
+    return launches
+
+
 def phase_numbers(device, pools, vmap_pools, sync):
     import repro_torch
     from repro_torch import random as R
@@ -2754,6 +3416,9 @@ def main() -> int:
     mega_err = max(mega_err, train_err)
     fused_launches = phase_fused(torch, device, eager)
     ppo_launches = phase_ppo(torch, device)
+    async_launches, async_err = phase_async(torch, device)
+    mega_err = max(mega_err, async_err)
+    runtime_launches = phase_runtime(torch, device)
     numbers = phase_numbers(device, pools, vmap_pools, sync)
     del vmap_pools
     bodies, bodies_err, memory = phase_bodies(torch, device, pools, sync,
@@ -2778,12 +3443,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/envstep/megastep.py:80",
         "launches": (launches["megastep"] + train_launches["megastep"]
                      + compat_launches["megastep"]
-                     + fused_launches["megastep"] + ppo_launches),
+                     + fused_launches["megastep"] + ppo_launches
+                     + async_launches["megastep"]
+                     + runtime_launches["megastep"]),
         "launches_per_path": {"env": launches["megastep"],
                               "train": train_launches["megastep"],
                               "compat": compat_launches["megastep"],
                               "fused": fused_launches["megastep"],
-                              "ppo": ppo_launches},
+                              "ppo": ppo_launches,
+                              "async": async_launches["megastep"],
+                              "runtime": runtime_launches["megastep"]},
         "max_abs_err": mega_err,
         "ms": cartpole["ms"],
         "plain_ms": cartpole["plain_ms"],
@@ -2805,11 +3474,15 @@ def main() -> int:
         "source": "src/repro_torch/csrc/raster.cu",
         "replaces": "src/repro/kernels/raster/raster.py:57",
         "launches": (launches["raster"] + train_launches["raster"]
-                     + compat_launches["raster"] + fused_launches["raster"]),
+                     + compat_launches["raster"] + fused_launches["raster"]
+                     + async_launches["raster"]
+                     + runtime_launches["raster"]),
         "launches_per_path": {"env": launches["raster"],
                               "train": train_launches["raster"],
                               "compat": compat_launches["raster"],
-                              "fused": fused_launches["raster"]},
+                              "fused": fused_launches["raster"],
+                              "async": async_launches["raster"],
+                              "runtime": runtime_launches["raster"]},
         "max_abs_err": raster_err,
         "ms": pong["raster"]["ms"],
         "plain_ms": pong["raster"]["plain_ms"],

@@ -6,11 +6,11 @@ CUDA card unless given a `device`, matching the paper's migration story:
 change one import line, keep the experiment code. For the fast paths use
 `cairl.make_functional` + `cairl.rollout`, or `cairl.make_vec(id,
 num_envs)`, the vector frontend over the pools. `cairl.spec(id)` exposes
-the `EnvSpec` (transform pipeline, tags, time limit) behind each id. The
-sharded pool comes with ROADMAP A12.
+the `EnvSpec` (transform pipeline, tags, time limit) behind each id.
 """
 from repro_torch.core.registry import make_compat as make  # noqa: F401
 from repro_torch.core.registry import make as make_functional  # noqa: F401
 from repro_torch.core.registry import registered, spec, spec_of  # noqa: F401
 from repro_torch.core.runner import rollout, rollout_random  # noqa: F401
-from repro_torch.pool import EnvPool, HostPool, make_pool, make_vec  # noqa: F401
+from repro_torch.pool import (EnvPool, HostPool, ShardedEnvPool,  # noqa: F401
+                              make_pool, make_vec)

@@ -68,8 +68,10 @@ class Env:
         megastep launch (repro_torch.kernels.envstep.fused_step).
 
         Returns `(new_state, Timestep)` with a leading step axis on the
-        Timestep leaves. Raises NotImplementedError for a stack without a
-        fused spec; probe with `supports_fused_step(env)`.
+        Timestep leaves. `active` is an optional (B,) bool lane mask (the
+        async pool's masked step): inactive lanes keep their state and key
+        and report zero outputs. Raises NotImplementedError for a stack
+        without a fused spec; probe with `supports_fused_step(env)`.
         """
         from repro_torch.kernels.envstep import fused_step as _fused_step
 

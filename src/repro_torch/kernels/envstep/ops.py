@@ -26,12 +26,17 @@ the K·B post-reset scenes (`obs` rows, the fresh state's where a lane
 reset), and a K-step select loop rebuilds the frame stack. That renders
 what the per-step path renders: one stepped and one fresh frame per lane
 and step.
+
+`fused_step(active=)` is the async pool's masked step: the megastep still
+runs every lane, then `_mask_inactive` selects, per lane, the old state
+(auto-reset key included) and zero outputs where the lane is inactive.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch import random as R
 from repro_torch.core import pipeline as P
@@ -196,6 +201,39 @@ def _stack_frames(frames, pre, post, done):
     return obs, tobs
 
 
+def keep_idle_state(old, new, active):
+    """Lanes where `active` (B,) is False keep their `old` rows: a select
+    over every (B, ...) leaf of two like trees, the auto-reset key
+    included, which the kernel returned advanced. The kernel still
+    computes every lane; this select is what keeps an idle session's
+    stream unperturbed."""
+    def lane(n, o):
+        act = active.to(device=n.device, dtype=torch.bool)
+        return torch.where(act.reshape(act.shape + (1,) * (n.dim() - 1)), n, o)
+
+    return tree_map(lane, new, old)
+
+
+def _mask_inactive(old_state, new_state, ts, active):
+    """Masked-active lane gating (the JAX package's `ops._mask_inactive`):
+    lanes where `active` is False keep their pre-chunk state
+    (`keep_idle_state`) and report zero obs, reward, info and done=False.
+    """
+    from repro_torch.core.env import Timestep
+
+    act = active.to(device=ts.reward.device, dtype=torch.bool)
+
+    def out(n):      # per-step output leaves: (K, B, ...)
+        m = act.reshape((1,) + act.shape + (1,) * (n.dim() - 2))
+        return torch.where(m, n, n.new_zeros(()))
+
+    sel_state = keep_idle_state(old_state, new_state, act)
+    info = {k: out(v) for k, v in ts.info.items()}
+    return sel_state, Timestep(state=sel_state, obs=out(ts.obs),
+                               reward=out(ts.reward), done=out(ts.done),
+                               info=info)
+
+
 def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
                backend: str = "auto", active=None):
     """Advance a batched `AutoReset(env)` state by K fused steps.
@@ -205,6 +243,10 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
               `FrameStack(ObsToPixels(...))` (the arcade pixel pipeline).
     state   : `AutoResetState` with batched (B, ...) leaves.
     actions : (K, B) (discrete) or (K, B, 1) (continuous) action block.
+    active  : optional (B,) bool lane mask (the async pool's masked
+              step): lanes where it is False keep their state and key and
+              report zero obs, reward, info and done=False. None steps
+              every lane.
 
     Returns `(new_state, ts)`: `ts` is a `Timestep` whose obs / reward /
     done / info leaves carry a leading (K, ...) step axis, as K iterated
@@ -215,9 +257,6 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
     from repro_torch.core.wrappers import (AutoResetState, FrameStackState,
                                            TimeLimitState)
 
-    if active is not None:
-        raise NotImplementedError(
-            "active= lane masks come with the async pool (ROADMAP A11)")
     found = _resolve(env)
     if found is None:
         raise NotImplementedError(
@@ -256,9 +295,11 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
         odt = core.observation_space.dtype
         info["terminal_obs"] = tobs.transpose(-1, -2).to(odt)
         new_state = AutoResetState(inner, final_keys)
-        return new_state, Timestep(state=new_state,
-                                   obs=obs.transpose(-1, -2).to(odt),
-                                   reward=reward, done=done, info=info)
+        out = new_state, Timestep(state=new_state,
+                                  obs=obs.transpose(-1, -2).to(odt),
+                                  reward=reward, done=done, info=info)
+        return out if active is None else _mask_inactive(state, *out,
+                                                         active=active)
 
     # Pixel pipeline: the chunk's stepped (pre-reset) and post-reset frames
     # in two batched raster launches (the obs rows are the fresh state's
@@ -273,9 +314,11 @@ def fused_step(env, state, actions, num_steps: Optional[int] = None, *,
         inner = FrameStackState(inner, obs_px[-1].clone())
     info["terminal_obs"] = tobs_px
     new_state = AutoResetState(inner, final_keys)
-    return new_state, Timestep(state=new_state, obs=obs_px, reward=reward,
-                               done=done, info=info)
+    out = new_state, Timestep(state=new_state, obs=obs_px, reward=reward,
+                              done=done, info=info)
+    return out if active is None else _mask_inactive(state, *out,
+                                                     active=active)
 
 
 __all__ = ["BACKENDS", "env_megastep", "fresh_rows", "fused_step",
-           "kernel_mismatch", "state_rows", "supports"]
+           "keep_idle_state", "kernel_mismatch", "state_rows", "supports"]

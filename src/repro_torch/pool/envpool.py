@@ -64,6 +64,40 @@ class XlaPool(NamedTuple):
     step_many: Callable[..., Tuple[PoolState, PoolStep]]
 
 
+def auto_backend(env: Env, device: torch.device) -> str:
+    """The step backend `make_vec(backend="auto")` takes on `device`: the
+    fused megastep when the stack has one, as the CUDA kernel ("cuda") on a
+    CUDA device where its compiled body fits the instance, as its plain
+    PyTorch version ("torch") on other devices; otherwise "vmap" (also for
+    a stack holding a transform with no fusion role, `FlattenObs` or
+    `RewardScale`)."""
+    if not supports_fused_step(env):
+        return "vmap"
+    if device.type != "cuda":
+        return "torch"
+    return "cuda" if kernel_mismatch(env) is None else "vmap"
+
+
+def check_backend(env: Env, backend: str, device: torch.device) -> None:
+    """Raise unless `env` can step on `backend` on `device`: the fused
+    backends need a megastep spec (ValueError), "cuda" a compiled body that
+    fits the instance (NotImplementedError) and a CUDA device (ValueError)."""
+    if backend in FUSED_BACKENDS:
+        if not supports_fused_step(env):
+            raise ValueError(f"backend={backend!r} needs a fused megastep "
+                             f"spec, and {env.name} has none; use "
+                             "backend='vmap'")
+        why = kernel_mismatch(env) if backend == "cuda" else None
+        if why is not None:
+            raise NotImplementedError(why)
+        if backend == "cuda" and device.type != "cuda":
+            raise ValueError("backend='cuda' runs the CUDA kernel and "
+                             f"needs a CUDA device, not {device}")
+    elif backend != "vmap":
+        raise ValueError(f"unknown pool backend {backend!r}; expected "
+                         f"'vmap' or one of {FUSED_BACKENDS}")
+
+
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
     a = x.detach().cpu().numpy().copy()
     return a.astype(np.uint32) if x.dtype == R.KEY_DTYPE else a
@@ -113,20 +147,7 @@ class EnvPool:
         self.device = resolve_device(device)
         self.backend = backend
         self.unroll = max(int(unroll), 1)
-        if backend in FUSED_BACKENDS:
-            if not supports_fused_step(env):
-                raise ValueError(f"backend={backend!r} needs a fused megastep "
-                                 f"spec, and {env.name} has none; use "
-                                 "backend='vmap'")
-            why = kernel_mismatch(env) if backend == "cuda" else None
-            if why is not None:
-                raise NotImplementedError(why)
-            if backend == "cuda" and self.device.type != "cuda":
-                raise ValueError("backend='cuda' runs the CUDA kernel and "
-                                 f"needs a CUDA device, not {self.device}")
-        elif backend != "vmap":
-            raise ValueError(f"unknown pool backend {backend!r}; expected "
-                             f"'vmap' or one of {FUSED_BACKENDS}")
+        check_backend(env, backend, self.device)
         self.venv = Vec(AutoReset(env), self.num_envs)
         self._carry: Optional[Tuple[Any, torch.Tensor]] = None  # (state, key)
         self._obs: Optional[torch.Tensor] = None
@@ -157,21 +178,23 @@ class EnvPool:
         return PoolState(state, obs, R.fold_in(key, 0x57EB))
 
     def _step_many_core(self, env_state, actions: torch.Tensor,
-                        key: torch.Tensor):
+                        key: torch.Tensor, venv: Optional[Vec] = None):
         """K batched env steps -> (env_state, (obs, reward, done, info)),
         outputs stacked on a leading (K, ...) axis. On the vmap backend step
-        i gets the key `fold_in(key, i)`; the fused backends' dynamics read
-        no per-step key, as in the JAX pool."""
+        i gets the key `fold_in(key, i)` (split over `venv`'s lanes, this
+        pool's by default); the fused backends' dynamics read no per-step
+        key, as in the JAX pool."""
         if self._fused:
             new_state, ts = self.env.fused_step(
                 env_state, actions, num_steps=actions.shape[0],
                 backend=self.backend)
             return new_state, (ts.obs, ts.reward, ts.done, ts.info)
+        venv = venv if venv is not None else self.venv
         keys = R.fold_in(key, torch.arange(actions.shape[0],
                                            device=key.device))
         outs = []
         for a, k in zip(actions, keys):
-            ts = self.venv.step(env_state, a, k)
+            ts = venv.step(env_state, a, k)
             env_state = ts.state
             outs.append(ts)
         info = {k: torch.stack([ts.info[k] for ts in outs]) for k in outs[0].info}
@@ -244,6 +267,12 @@ class EnvPool:
                             self.num_envs)
 
     # -- snapshot / restore -------------------------------------------------
+    @property
+    def has_carry(self) -> bool:
+        """Whether `state_dict()` has a carry to snapshot (after `reset` or
+        `load_state_dict`)."""
+        return self._carry is not None
+
     def state_dict(self) -> Dict[str, Any]:
         """Host snapshot of the stateful carry, in the JAX pool's structure:
         numpy leaves, float32 state, int32 step counters, uint32 keys."""
@@ -261,6 +290,9 @@ class EnvPool:
                                   self.device),
                        _load_like(template.key, d["key"], self.device))
         self._obs = _load_like(template.obs, d["obs"], self.device)
+
+    def _render(self, env_state) -> torch.Tensor:
+        return self.venv.render(env_state)
 
     # -- whole-rollout fast path --------------------------------------------
     def rollout(self, num_steps: int, key: torch.Tensor, render: bool = False):
@@ -282,7 +314,7 @@ class EnvPool:
         last = torch.zeros_like(rew)
         if render or not self._fused:
             if render:
-                last = self.venv.render(ps.env_state)
+                last = self._render(ps.env_state)
             for i in range(1, num_steps + 1):
                 k = R.fold_in(key, i)
                 acts = sample_batch(self.action_space, k, self.num_envs)
@@ -290,7 +322,7 @@ class EnvPool:
                 rew = rew + out.reward
                 eps = eps + out.done.to(torch.int32)
                 if render:
-                    last = self.venv.render(ps.env_state)
+                    last = self._render(ps.env_state)
             return rew, eps, last
         kk = max(min(self.unroll, num_steps), 1)
         for start in range(1, num_steps + 1, kk):
@@ -306,4 +338,4 @@ class EnvPool:
 
 
 __all__ = ["EnvPool", "FUSED_BACKENDS", "PoolState", "PoolStep", "XlaPool",
-           "resolve_device"]
+           "auto_backend", "check_backend", "resolve_device"]

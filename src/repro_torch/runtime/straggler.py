@@ -7,8 +7,8 @@ stragglers are as costly as failures. Policy implemented here:
      median are flagged;
   2. flagged hosts get `advice`: first "profile" (transient), then "demote"
      (evict and re-mesh, cheaper than dragging the fleet — the same
-     restore path as a failure, planned not reactive; the runtime that
-     acts on it comes with ROADMAP A12).
+     restore path as a failure, planned not reactive:
+     runtime/supervisor.py's `recover()`).
 """
 from __future__ import annotations
 
@@ -28,8 +28,8 @@ class StragglerReport:
 
 class StragglerTracker:
     """Participants are hosts for SPMD training, or the lanes of a
-    `pool.HostPool`; the JAX package's env service (ROADMAP A11) reuses the
-    same policy over *client sessions* —
+    `pool.HostPool`; serving/env_service.py reuses the same policy over
+    *client sessions* —
     a session whose action round-trip is persistently slower than the fleet
     median is the slow consumer the async pool exists to isolate, and gets
     the same profile->demote advice. Sessions come and go, so ids register

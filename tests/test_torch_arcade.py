@@ -42,6 +42,18 @@ from repro_torch.core.wrappers import AutoReset, Vec
 from repro_torch.kernels.envstep import fused_step, spec_for
 from repro_torch.pool.envpool import _load_like
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 ENVS = ("Pong", "Breakout")
 B = 8

@@ -26,6 +26,18 @@ from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.models import attention as torch_attention
 from repro_torch.models import layers
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32_TOL = dict(rtol=3e-5, atol=3e-5)      # tests/test_kernels.py
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)     # tests/test_kernels.py
 LAYER_TOL = dict(rtol=1e-5, atol=1e-6)    # tests/conftest.py

@@ -213,7 +213,8 @@ def test_make_vec_env_kwargs_and_the_geometry_refusal():
     """Env kwargs reach the pool; a grid instance the compiled body does not
     fit takes "vmap" under `auto` on the card and is refused under
     "cuda", naming the mismatch; on the CPU it fuses through the plain
-    megastep."""
+    megastep. `make_pool`'s "async" and "sharded" give the async pool and
+    the sharded pool (over `mesh`, or the one device named)."""
     pool = repro_torch.make_vec("CliffWalk-v0", 3, device=CPU, n_rows=3,
                                 n_cols=16)
     assert pool.observation_space.shape == (48,) and pool.backend == "torch"
@@ -233,9 +234,14 @@ def test_make_vec_env_kwargs_and_the_geometry_refusal():
     assert make_pool("CartPole-v1", 2, step_backend="torch",
                      device=CPU).backend == "torch"
     assert isinstance(make_pool("CartPole-v1", 2, backend="host"), HostPool)
-    for backend, item in (("async", "A11"), ("sharded", "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_pool("CartPole-v1", 2, backend=backend, device=CPU)
+    apool = make_pool("CartPole-v1", 2, backend="async", device=CPU)
+    assert type(apool).__name__ == "AsyncEnvPool"
+    assert apool.device == torch.device(CPU) and apool.backend == "torch"
+    spool = make_pool("CartPole-v1", 2, backend="sharded", device=CPU)
+    assert type(spool).__name__ == "ShardedEnvPool"
+    assert spool.mesh == (torch.device(CPU),) and spool.backend == "vmap"
+    assert make_pool("CartPole-v1", 2, backend="sharded", mesh=(CPU, CPU),
+                     step_backend="torch").n_shards == 2
 
 
 # -- transforms with no fusion role -------------------------------------------

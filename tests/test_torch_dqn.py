@@ -47,6 +47,18 @@ from repro_torch.rl import dqn as TD
 from repro_torch.rl import networks as TN
 from repro_torch.rl import replay as TR
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 CPU = "cpu"
 legacy = lambda: jax.threefry_partitionable(False)

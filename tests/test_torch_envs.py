@@ -27,6 +27,18 @@ import repro_torch.envs.puzzle as TP
 from repro.kernels.envstep import spec_for as jax_spec_for
 from repro_torch.kernels.envstep import spec_for
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B = 8
 ENVS = ("CartPole", "MountainCar", "Pendulum", "Acrobot")
 STATE_RANGES = {

@@ -27,6 +27,18 @@ import torch
 
 from repro_torch.kernels.attention.ref import attention_ref
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 KQ, KB = 64, 64          # query rows a block, keys a tile: csrc/flash.cu
 NEG = -1e30              # the kernels' masked score
 BF16_ULPS, BF16_FLOOR, BF16_BITS_SHARE = 2, 1e-4, 0.01   # chip_smoke.py

@@ -1,7 +1,9 @@
 """The port stands alone: `repro_torch` imports neither JAX nor any module of
 the JAX package `repro`, and runs on the CUDA card unless told otherwise:
 its entry points (`make_vec`, `cairl.make`, the DQN and PPO trainers, the
-fused trainer and fleets) raise without a card when no device is named."""
+fused trainer and fleets, the async, sharded and supervised pools and the
+env service) raise without a card when no device is named; the checkpoint
+manager, the failure harness and `propose_mesh` are host-only."""
 import ast
 import os
 import pathlib
@@ -12,6 +14,18 @@ import pytest
 import torch
 
 import repro_torch
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 PKG = SRC / "repro_torch"
@@ -30,7 +44,10 @@ for mod in ("envs.grid.snake", "envs.puzzle", "envs.multitask", "models.lm",
             "kernels.attention.ops", "serving.engine", "rl.dqn",
             "train.optim", "envs.baseline_python.classic", "cairl",
             "core.gym_compat", "core.runner", "pool.host", "runtime.straggler",
-            "rl.ppo", "train.fused", "sustainability.impact"):
+            "rl.ppo", "train.fused", "sustainability.impact",
+            "pool.async_pool", "pool.sharded", "runtime.failures",
+            "runtime.elastic", "runtime.supervisor", "checkpoint.manager",
+            "serving.env_service"):
     assert "repro_torch." + mod in names, mod
 """
 
@@ -40,7 +57,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, text=True,
                          capture_output=True, timeout=120, check=True).stdout
     count, _, bad = out.strip().partition(" ")
-    assert int(count) >= 89, out
+    assert int(count) >= 97, out
     assert bad == "", f"repro_torch pulled in {bad}"
 
 
@@ -113,3 +130,54 @@ def test_dqn_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(ValueError, match="needs a CUDA device"):
         dqn.dqn_init(env, dqn.DQNConfig(memory_size=8, env_backend="cuda"),
                      R.PRNGKey(0), device="cpu")
+
+
+def test_async_runtime_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    """The async pool, the env service and the sharded pool (and its
+    default mesh) run on the card unless told otherwise, and raise without
+    one; so do the pools `RolloutSupervisor.recover()` rebuilds for a pool
+    on the card. The checkpoint manager, the failure harness and
+    `propose_mesh` are host-only and run without a card."""
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.pool import (AsyncEnvPool, ShardedEnvPool,
+                                  default_pool_mesh, make_pool)
+    from repro_torch.runtime import (FaultInjector, HeartbeatMonitor,
+                                     RolloutSupervisor, build_mesh,
+                                     plan_recovery, propose_mesh)
+    from repro_torch.serving import EnvService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for entry in (lambda: AsyncEnvPool("CartPole-v1", 2),
+                  lambda: repro_torch.make_vec("CartPole-v1", 2,
+                                               backend="async"),
+                  lambda: EnvService("CartPole-v1", 2),
+                  lambda: ShardedEnvPool("CartPole-v1", 2),
+                  lambda: default_pool_mesh(),
+                  lambda: repro_torch.make_vec("CartPole-v1", 2,
+                                               mesh=("cuda:0",)),
+                  lambda: make_pool("CartPole-v1", 2, backend="sharded")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    with pytest.raises(ValueError, match="0 visible"):
+        build_mesh(1)
+    assert propose_mesh(8, prefer_model=1) == ((8, 1), ("data", "model"))
+    clk = [0.0]
+    mon = HeartbeatMonitor(2, timeout_s=1.0, clock=lambda: clk[0])
+    inj = FaultInjector(clock=lambda: clk[0])
+    inj.schedule(0.0, "device_loss")
+    assert [f.kind for f in inj.due()] == ["device_loss"]
+    assert plan_recovery(mon, 1, None).new_device_count == 2
+    with CheckpointManager(str(tmp_path)) as mgr:
+        mgr.save(1, {"x": np.arange(3)})
+        assert mgr.restore({"x": np.zeros(3, np.int64)})["x"].tolist() == [
+            0, 1, 2]
+    sup = RolloutSupervisor(AsyncEnvPool("CartPole-v1", 2, device="cpu"),
+                            str(tmp_path / "sup"), snapshot_every=1,
+                            blocking_snapshots=True)
+    sup.reset(seed=0)
+    sup.step(np.zeros(2, np.int32))
+    assert sup.recover()["mesh"] == ["cpu"]
+    assert sup.pool.device == torch.device("cpu")

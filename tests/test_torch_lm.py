@@ -31,6 +31,18 @@ from repro_torch.launch import serve
 from repro_torch.models import attention, lm
 from repro_torch.serving.engine import Request, ServeEngine
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("yi-6b", "h2o-danube-1.8b")
 

@@ -36,6 +36,18 @@ from repro_torch.kernels.envstep import (env_megastep, fresh_rows,
                                          megastep_cuda, megastep_ref, spec_for)
 from test_torch_grid import grid_rows
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B, K = 200, 8
 MAX_STEPS = {"CartPole": 500, "MountainCar": 200, "Pendulum": 200,
              "Acrobot": 500, "Pong": 1000, "Breakout": 1000, "LightsOut": 100,

@@ -52,6 +52,18 @@ from repro_torch.pool import EnvPool, auto_backend
 from repro_torch.pool.envpool import _load_like
 from test_torch_grid import _match_tree
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 KEYS = R.split(R.PRNGKey(3, "cpu"), 16)          # (16, 2)
 U32 = np.uint32
 

@@ -20,6 +20,18 @@ from repro.train import optim as J
 from repro_torch.train import optim as T
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
 def _tree(rng):
     """A param-shaped tree: a list of dense layers and a dict of convs."""
     return {"dense": [{"w": rng.standard_normal((5, 3)).astype(np.float32),

@@ -28,6 +28,18 @@ from repro.pool import make_vec as jax_make_vec
 from repro_torch import random as R
 from repro_torch.core.spaces import sample_batch
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 CLASSIC = ("CartPole-v1", "MountainCar-v0", "Pendulum-v1", "Acrobot-v1")
 GOLDEN_IDS = CLASSIC + ("CartPole-raw", "MountainCar-raw", "Pendulum-raw",
@@ -175,13 +187,22 @@ def test_load_state_dict_rejects_other_widths():
 
 
 def test_unported_surfaces_raise_with_roadmap_item():
-    """The surfaces still to port raise naming their ROADMAP item (the
-    async pool, A11; mesh pools, A12); the render rollout and the host
-    pool, ported since, give the JAX pool's last frame and a `HostPool`."""
-    with pytest.raises(NotImplementedError, match="A11"):
-        repro_torch.make_vec("CartPole-v1", 2, backend="async", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        repro_torch.make_vec("CartPole-v1", 2, mesh=object(), device="cpu")
+    """The surfaces that once raised naming their ROADMAP item are ported:
+    `backend="async"` gives an `AsyncEnvPool`, `mesh=` a `ShardedEnvPool`
+    over that tuple of devices, `host=True` a `HostPool`, and the render
+    rollout the JAX pool's last frame."""
+    from repro_torch.pool import AsyncEnvPool, ShardedEnvPool
+
+    apool = repro_torch.make_vec("CartPole-v1", 2, backend="async",
+                                 device="cpu")
+    assert type(apool) is AsyncEnvPool and apool.num_slots == 2
+    assert apool.backend == "torch" and apool.device == torch.device("cpu")
+    spool = repro_torch.make_vec("CartPole-v1", 2, mesh=("cpu", "cpu"))
+    assert type(spool) is ShardedEnvPool and spool.n_shards == 2
+    assert spool.backend == "torch" and spool.shard_size == 1
+    with pytest.raises(ValueError, match="do not apply"):
+        repro_torch.make_vec("CartPole-v1", 2, backend="async",
+                             mesh=("cpu",))
     host = repro_torch.make_vec("CartPole-v1", 2, host=True)
     assert type(host).__name__ == "HostPool" and len(host) == 2
     host.close()

@@ -22,6 +22,18 @@ import torch
 
 from repro_torch import random as R
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SEEDS = (0, 1, 42, 2**31 - 1, -1, 797)
 SIZES = (1, 3, 4, 5)
 

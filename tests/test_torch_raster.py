@@ -25,6 +25,18 @@ from repro.kernels.raster import rasterize_ref as jax_rasterize_ref
 from repro_torch.kernels.raster import (capsule_scene, rasterize,
                                         rasterize_cuda, render_scene)
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CASES = {
     "pong_s4_84x84": (6, 4, 84, 84),
     "breakout_s26_84x84": (3, 26, 84, 84),

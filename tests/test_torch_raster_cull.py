@@ -27,6 +27,18 @@ from repro_torch.envs.multitask import Multitask
 from repro_torch.envs.puzzle import LightsOut
 from repro_torch.kernels.raster import rasterize_ref, tile_keep
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: PyTorch's intra-op threads, next to the
+    other test workers' and JAX's, only oversubscribe the cores, so each
+    test runs on one (and puts the count back)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 #: the kernel's warp tile (rows, cols): kTileH, kTileW in csrc/raster.cu
 KERNEL_TILE = (8, 32)
 #: tile shapes proven here: the kernel's, and a square one
