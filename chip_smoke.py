@@ -14,12 +14,14 @@ repository around it. Phases, each printing one JSON line with its seconds:
   attention  the CUDA flash attention against its plain version
            (attention_ref) on the card, in bf16 (the tensor-core kernel)
            and f32 (the CUDA-core kernel), at Yi-6B's heads
-           (32/4, D 128) and h2o-danube-1.8b's (32/8, D 80): a 2,048-token
+           (32/4, D 128), h2o-danube-1.8b's (32/8, D 80), MiniCPM3-4B's
+           (40/40, D 96, Dv 64: MLA's naive form), OLMoE-1B-7B's (16/16,
+           D 128) and granite-moe-1b-a400m's (16/8, D 64): a 2,048-token
            prompt over a 4,096-slot cache, a ragged 37-token prompt, a
            decode row at position 3,000, Danube's 4,096 window over 4,608
            tokens, non-causal 1,024², and B = 2; max error, the share of
-           outputs whose bits differ, and at the main path's shape kernel,
-           plain and SDPA times and the bound
+           outputs whose bits differ, and at Yi's and MiniCPM3's prefill
+           shapes kernel, plain and SDPA times and the bound
   lm       the LM serving path: Yi-6B at full width and depth (random
            params from a seed) through ServeEngine(slots=8, max_seq=4096),
            16 requests of 128 to 2,048 prompt tokens and 64 greedy new
@@ -31,6 +33,25 @@ repository around it. Phases, each printing one JSON line with its seconds:
            h2o-danube-1.8b at full width, 4 layers: a 4,608-token prefill
            through the ring path, the kernel on its layers' q, k and v, and
            16 per-slot decode steps (no kernel launch)
+  mla      MiniCPM3-4B (MLA) at full width and depth (random params from a
+           seed): lm.prefill of 4 prompts of 2,048 tokens into a 4,096-slot
+           cache, then 64 greedy lm.decode_step calls at a scalar position
+           (the engine cannot serve MLA), counts set to 0 just before and
+           read just after (62 layers × 65 calls: 4,030 flash launches);
+           tokens/s, the prefill's seconds, a decode step's ms, peak
+           memory; prefill + decode against forward through the kernel;
+           the kernel on the real q, k and v of layers 0 and 61
+  moe      OLMoE-1B-7B at full width and depth through
+           ServeEngine(slots=8, max_seq=4096), phase lm's 16 requests (16
+           prefills × 16 layers: 256 flash launches); tokens/s, time to
+           first token, stats(); decode against forward in f32 on a 7-token
+           prompt (no expert can overflow), and in bf16 on 1,000 tokens
+           reported (not gated) beside the routings that differ and the
+           capacity drops; the kernel's decode and forward against the
+           plain attention's on the same routings (f32 and bf16, gated);
+           the kernel on the real q, k and v of layers 0 and 15 of a
+           2,048-token prefill; then granite-moe-1b-a400m at full width and
+           depth (GQA 16/8, D 64): the same checks (layers 0 and 23)
   kernel   the CUDA megastep, which splits each lane's key and runs the
            env's reset in-kernel, against its plain twin on the card (the
            key chain and resets of fresh_rows, then megastep_ref): the four
@@ -150,9 +171,10 @@ repository around it. Phases, each printing one JSON line with its seconds:
            from phase train: wall and device-busy ms a step, idle share,
            launches a step
   lm_profile  a torch.profiler window over Yi-6B's decode ticks and one
-           2,048-token prefill: wall and device-busy ms, idle share, the
-           costliest kernels (last, since a profiler slows the launches
-           that follow it)
+           2,048-token prefill, the same for OLMoE-1B-7B, and over
+           MiniCPM3-4B's decode steps (B 4 after 2,048 tokens): wall and
+           device-busy ms, idle share, the costliest kernels (last, since
+           a profiler slows the launches that follow it)
 then the kernels line, and last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -402,7 +424,7 @@ _BODY = re.compile(r"(CartPole|MountainCar|Pendulum|Acrobot|Pong|Breakout|"
                    r"LightsOut|FrozenLake|CliffWalk|Maze|Snake)ELb([01])")
 
 
-_FLASH = re.compile(r"flash_(bf16_)?kernelILi(\d+)E")
+_FLASH = re.compile(r"flash_(bf16_)?kernelILi(\d+)ELi(\d+)E")
 
 
 def _entry_name(mangled: str) -> str:
@@ -411,7 +433,7 @@ def _entry_name(mangled: str) -> str:
         return m[1] + (" +TimeLimit" if m[2] == "1" else "")
     m = _FLASH.search(mangled)
     if m:
-        return f"flash {'bfloat16' if m[1] else 'float32'} D={m[2]}"
+        return f"flash {'bfloat16' if m[1] else 'float32'} D={m[2]} Dv={m[3]}"
     return "raster_kernel" if "raster_kernel" in mangled else mangled
 
 
@@ -2864,9 +2886,12 @@ def phase_pixel_split(torch, device, env_id, pool, sync, numbers, bw, flops):
 
 # -- the LM serving path (flash attention) --------------------------------------
 
-#: head layouts of the two LM configs the port serves: (query heads, KV
-#: heads, head dim)
-YI_HEADS, DANUBE_HEADS = (32, 4, 128), (32, 8, 80)
+#: head layouts of the LM configs the port runs: (query heads, KV heads,
+#: q/k head dim, v head dim); MiniCPM3-4B's MLA attends with q and k of
+#: nope + rope = 96 and v of v_head_dim = 64 (its naive form)
+YI_HEADS, DANUBE_HEADS = (32, 4, 128, 128), (32, 8, 80, 80)
+MINICPM3_HEADS = (40, 40, 96, 64)
+OLMOE_HEADS, GRANITE_HEADS = (16, 16, 128, 128), (16, 8, 64, 64)
 #: the JAX package's attention tolerances (tests/test_kernels.py):
 #: test_flash_attention_sweep (f32) and test_flash_attention_bf16
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 5e-2}
@@ -2879,20 +2904,34 @@ ATTN_TOL = {"float32": 3e-5, "bfloat16": 5e-2}
 #: BF16_BITS_SHARE of the outputs. A fault of the bf16 load, conversion or
 #: store, or a dropped K tile, moves most outputs of a row by many ulps.
 BF16_ULPS, BF16_FLOOR, BF16_BITS_SHARE = 2, 1e-4, 0.01
-#: (case, heads, B, Lq, Lk, causal, window, q_offset); each runs in bf16
-#: and f32. The first is the main path's shape: a 2,048-token prompt
-#: prefilled against Yi-6B's 4,096-slot cache
+#: (case, heads, B, Lq, Lk, causal, window, q_offset, timed); each runs in
+#: bf16 and f32. `timed` names the path whose shape a case times beside its
+#: bound (and SDPA where it computes the same function), else None: "lm"
+#: (a 2,048-token prompt prefilled against Yi-6B's 4,096-slot cache: the
+#: kernels line's shape), "window" (Danube's), "mla" (MiniCPM3-4B's
+#: prefill: the kernels line's minicpm3_heads). The MoE paths' heads,
+#: OLMoE-1B-7B's (16, 16, 128) and Granite-MoE's (16, 8, 64), are checked
+#: at a prefill, a ragged prompt and a decode
 ATTN_CASES = (
-    ("causal over a full cache", YI_HEADS, 1, 2048, 4096, True, 0, 0),
-    ("causal over a full cache", DANUBE_HEADS, 1, 2048, 4096, True, 0, 0),
-    ("ragged prompt", YI_HEADS, 1, 37, 4096, True, 0, 0),
-    ("ragged prompt", DANUBE_HEADS, 1, 37, 4096, True, 0, 0),
-    ("decode", YI_HEADS, 1, 1, 4096, True, 0, 3000),
-    ("decode", DANUBE_HEADS, 1, 1, 4096, True, 0, 3000),
-    ("window", DANUBE_HEADS, 1, 4608, 4608, True, 4096, 0),
-    ("non-causal", YI_HEADS, 1, 1024, 1024, False, 0, 0),
-    ("non-causal", DANUBE_HEADS, 1, 1024, 1024, False, 0, 0),
-    ("B = 2, offset prompt", YI_HEADS, 2, 333, 4096, True, 0, 100),
+    ("causal over a full cache", YI_HEADS, 1, 2048, 4096, True, 0, 0, "lm"),
+    ("causal over a full cache", DANUBE_HEADS, 1, 2048, 4096, True, 0, 0, None),
+    ("ragged prompt", YI_HEADS, 1, 37, 4096, True, 0, 0, None),
+    ("ragged prompt", DANUBE_HEADS, 1, 37, 4096, True, 0, 0, None),
+    ("decode", YI_HEADS, 1, 1, 4096, True, 0, 3000, None),
+    ("decode", DANUBE_HEADS, 1, 1, 4096, True, 0, 3000, None),
+    ("window", DANUBE_HEADS, 1, 4608, 4608, True, 4096, 0, "window"),
+    ("non-causal", YI_HEADS, 1, 1024, 1024, False, 0, 0, None),
+    ("non-causal", DANUBE_HEADS, 1, 1024, 1024, False, 0, 0, None),
+    ("B = 2, offset prompt", YI_HEADS, 2, 333, 4096, True, 0, 100, None),
+    ("causal over a full cache", MINICPM3_HEADS, 1, 2048, 4096, True, 0, 0, "mla"),
+    ("ragged prompt", MINICPM3_HEADS, 1, 37, 4096, True, 0, 0, None),
+    ("decode", MINICPM3_HEADS, 1, 1, 4096, True, 0, 3000, None),
+    ("causal over a full cache", OLMOE_HEADS, 1, 2048, 4096, True, 0, 0, None),
+    ("ragged prompt", OLMOE_HEADS, 1, 37, 4096, True, 0, 0, None),
+    ("decode", OLMOE_HEADS, 1, 1, 4096, True, 0, 3000, None),
+    ("causal over a full cache", GRANITE_HEADS, 1, 2048, 4096, True, 0, 0, None),
+    ("ragged prompt", GRANITE_HEADS, 1, 37, 4096, True, 0, 0, None),
+    ("decode", GRANITE_HEADS, 1, 1, 4096, True, 0, 3000, None),
 )
 #: the serving run: Yi-6B at full width and depth through ServeEngine
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 64
@@ -2916,29 +2955,42 @@ F32_LOGIT_TOL, BF16_LOGIT_REL = 2e-3, 5e-2
 DANUBE_LAYERS, DANUBE_PROMPT, DANUBE_DECODES = 4, 4608, 16
 #: decode ticks in the profiled window
 PROFILE_TICKS = 5
+#: MiniCPM3-4B at full width and depth (MLA, its naive form): prompts of
+#: 2,048 tokens prefilled into a SERVE_MAX_SEQ cache, then greedy
+#: decode steps at a scalar position (the engine cannot serve MLA:
+#: serving/engine.py::check_servable)
+MLA_BATCH, MLA_PROMPT, MLA_DECODES = 4, 2048, 64
+#: the MoE invariant's prompt in f32: with at most 8 tokens a group no
+#: expert can overflow (moe_capacity is at least 8), so forward(L + 1) and
+#: prefill(L) + decode drop nothing and must agree; at INVARIANT_L in bf16
+#: the two paths' routing can differ by design (other product shapes round
+#: the router logits otherwise, and capacity drops differ), so that error
+#: is reported beside the count of routings that differ, not gated
+MOE_F32_L = 7
 
 
 def attention_work(b, heads, lq, lk, causal, window, q_offset, itemsize):
     """(live query-key pairs, bytes, flops) of one attention call: each
-    row's visible keys counted, Q and O and the live K and V moved once,
-    4·D flops a live pair (q·k and p·v)."""
+    row's visible keys counted, Q, O and the live K and V moved once,
+    2·(D + Dv) flops a live pair (q·k and p·v)."""
     import numpy as np
 
-    hq, hkv, d = heads
+    hq, hkv, d, dv = heads
     qpos = q_offset + np.arange(lq, dtype=np.int64)
     hi = np.minimum(lk, qpos + 1) if causal else np.full(lq, lk)
     lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(lq, np.int64)
     pairs = int(np.maximum(hi - lo, 0).sum())
     live_keys = max(0, int(hi.max()) - int(lo.min()))
-    moved = itemsize * d * b * (2 * hq * lq + 2 * hkv * live_keys)
-    return pairs * b * hq, moved, 4 * d * pairs * b * hq
+    moved = itemsize * (d + dv) * b * (hq * lq + hkv * live_keys)
+    return pairs * b * hq, moved, 2 * (d + dv) * pairs * b * hq
 
 
 def attention_inputs(torch, heads, b, lq, lk, dtype, seed, device):
-    hq, hkv, d = heads
+    hq, hkv, d, dv = heads
     g = torch.Generator(device=device).manual_seed(seed)
-    mk = lambda h, l: torch.randn((b, h, l, d), generator=g, device=device).to(dtype)
-    return mk(hq, lq), mk(hkv, lk), mk(hkv, lk)
+    mk = lambda h, l, w: torch.randn((b, h, l, w), generator=g,
+                                     device=device).to(dtype)
+    return mk(hq, lq, d), mk(hkv, lk, d), mk(hkv, lk, dv)
 
 
 def attention_check(torch, q, k, v, what, **kw):
@@ -2977,17 +3029,19 @@ def attention_check(torch, q, k, v, what, **kw):
 
 
 def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
-    """The CUDA flash attention against attention_ref at the LM path's
-    shapes; kernel, plain and SDPA times and the bound at the main path's."""
+    """The CUDA flash attention against attention_ref at the LM paths'
+    shapes; kernel, plain and SDPA times and the bound at the timed cases
+    (the window's in bf16 only). Returns (worst error, the bf16 cases timed
+    as "lm" and as "mla")."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import attention_ref, flash_attention_cuda
 
     t0 = time.perf_counter()
-    cases, worst, main = [], 0.0, None
+    cases, worst, timed_bf16 = [], 0.0, {}
     with uncounted():
-        for i, (what, heads, b, lq, lk, causal, window, q_offset) in enumerate(
-                ATTN_CASES):
+        for i, (what, heads, b, lq, lk, causal, window, q_offset,
+                timed_as) in enumerate(ATTN_CASES):
             for dtype in (torch.bfloat16, torch.float32):
                 name = str(dtype).split(".")[-1]
                 q, k, v = attention_inputs(torch, heads, b, lq, lk, dtype, i,
@@ -2999,7 +3053,8 @@ def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
                         "Lq": lq, "Lk": lk, "causal": causal,
                         "window": window, "q_offset": q_offset,
                         "tol": ATTN_TOL[name], **checked}
-                if i == 0 or (what == "window" and dtype == torch.bfloat16):
+                if timed_as and (timed_as != "window"
+                                 or dtype == torch.bfloat16):
                     pairs, moved, ops = attention_work(
                         b, heads, lq, lk, causal, window, q_offset,
                         q.element_size())
@@ -3023,8 +3078,8 @@ def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
                         case["library_max_abs_err"] = float(
                             (sdpa().float() - attention_ref(q, k, v, **kw)
                              .float()).abs().max())
-                    if i == 0 and dtype == torch.bfloat16:
-                        main = case
+                    if dtype == torch.bfloat16:
+                        timed_bf16[timed_as] = case
                 cases.append(case)
                 del q, k, v
     torch.cuda.empty_cache()
@@ -3033,7 +3088,7 @@ def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
           "launches, plain over 3", "rates": {"bytes_per_s": bw,
                                               "bf16_flops": bf16_flops,
                                               "fp32_flops": fp32_flops}})
-    return worst, main
+    return worst, timed_bf16["lm"], timed_bf16["mla"]
 
 
 @contextlib.contextmanager
@@ -3059,6 +3114,21 @@ def captured_attention(layers, backend="auto"):
         yield seen
     finally:
         ops.attention = original
+
+
+def real_layer_checks(torch, lm, cfg, params, toks):
+    """The kernel against the plain version on the real q, k and v of the
+    first and last layers of one prefill of `toks` into a SERVE_MAX_SEQ
+    cache. Returns {"<arch> layer <i>": shapes, kwargs and errors}."""
+    with captured_attention({0, cfg.num_layers - 1}) as seen:
+        lm.prefill(cfg, params, {"tokens": toks}, SERVE_MAX_SEQ)
+    real = {}
+    for layer, (q, k, v, kw) in sorted(seen.items()):
+        what = f"{cfg.name} layer {layer}"
+        real[what] = {"q": list(q.shape), "k": list(k.shape),
+                      "v": list(v.shape), **kw,
+                      **attention_check(torch, q, k, v, what, **kw)}
+    return real
 
 
 def profile_window(torch, fn, n, ranges=()):
@@ -3159,6 +3229,92 @@ def serve_requests(torch, engine, prompts):
     return reqs, time.perf_counter() - t0, first, ticks
 
 
+def serve_cell(torch, lm, engine, prompts):
+    """The serving path of one model: a warm-up prefill and decode
+    (uncounted), then every prompt through `serve_requests` with the launch
+    counts set to 0 just before and read just after (one flash launch per
+    layer per prefill). Returns its numbers; raises on other counts or a
+    request without its tokens."""
+    cfg, device = engine.cfg, engine.device
+    eparams = engine.params
+    with uncounted():  # warm cuBLAS and the kernel's library
+        warm = torch.from_numpy(prompts[0][:PROMPT_LENS[0]])[None].to(device)
+        logits, caches = lm.prefill(cfg, eparams, {"tokens": warm},
+                                    SERVE_MAX_SEQ)
+        lm.decode_step(cfg, eparams, caches, logits.argmax(-1).to(torch.int32),
+                       torch.tensor([warm.shape[1]], device=device))
+        del caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    reqs, seconds, first, ticks = serve_requests(torch, engine, prompts)
+    launches = read_counts()
+    want = {"megastep": 0, "raster": 0,
+            "flash": len(prompts) * cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"{cfg.name} serving: launches {launches}, "
+                             f"want {want}")
+    for r in reqs:
+        if len(r.output) != SERVE_NEW or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.rid}: {len(r.output)} tokens, "
+                                 f"want {SERVE_NEW} in [0, {cfg.vocab_size})")
+    ttft = sorted(first.values())
+    decode_ticks = [s for s, n in ticks if n == 0]
+    generated = sum(len(r.output) for r in reqs)
+    return {
+        "arch": cfg.name, "slots": engine.slots, "max_seq": engine.max_seq,
+        "requests": len(prompts), "max_new_tokens": SERVE_NEW,
+        "prompt_tokens": int(sum(len(p) for p in prompts)),
+        "prompt_lens": [len(p) for p in prompts],
+        "seconds": seconds, "generated_tokens": generated,
+        "tokens_per_s": generated / seconds,
+        "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
+        "ticks": len(ticks), "decode_tick_ms_median":
+            1e3 * statistics.median(decode_ticks) if decode_ticks else None,
+        "admit_ticks_s": sum(s for s, n in ticks if n),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "stats": engine.stats(),
+        "clock": "host clock; each tick ends in the tokens' host copy, so "
+                 "a first token is stamped at the end of its tick"}
+
+
+def check_decode_vs_forward(torch, lm, cfg, eparams, toks):
+    """tests/test_models.py::test_decode_matches_forward through the
+    kernel: prefill(L) + decode_step(L) against forward(L + 1) on `toks`
+    (1, L + 1), in the compute dtype (bf16) through the kernel and the plain
+    attention, and in f32 (params upcast from `eparams`) through the
+    kernel. Emits and returns the errors; raises past F32_LOGIT_TOL in f32
+    or BF16_LOGIT_REL in bf16 (the kernel's, and the kernel's decode
+    against the plain one's)."""
+    import dataclasses
+
+    logits = {"bfloat16 kernel": decode_vs_forward(lm, cfg, eparams, toks, "auto"),
+              "bfloat16 plain": decode_vs_forward(lm, cfg, eparams, toks, "torch")}
+    p32 = lm.tree_map(lambda x: x.float(), eparams)
+    logits["float32 kernel"] = decode_vs_forward(
+        lm, dataclasses.replace(cfg, dtype="float32"), p32, toks, "auto")
+    del p32
+    inv = {what: logit_errors(*pair) for what, pair in logits.items()}
+    inv["bfloat16 kernel against plain, decode"] = logit_errors(
+        logits["bfloat16 kernel"][0], logits["bfloat16 plain"][0])
+    out = {"arch": cfg.name, "L": toks.shape[1] - 1, "f32_tol": F32_LOGIT_TOL,
+           "bf16_rel_l2_tol": BF16_LOGIT_REL,
+           "max_abs_logit": float(logits["bfloat16 kernel"][1].abs().max()),
+           **inv}
+    emit({"check": "decode_matches_forward", **out})
+    got, ref = logits["float32 kernel"]
+    torch.testing.assert_close(
+        got, ref, rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL,
+        msg=lambda m: f"{cfg.name} f32 decode != forward: {m}")
+    for what in ("bfloat16 kernel", "bfloat16 kernel against plain, decode"):
+        if not inv[what]["rel_l2"] <= BF16_LOGIT_REL:
+            raise AssertionError(f"{cfg.name} decode != forward ({what}): "
+                                 f"{inv[what]}")
+    return out
+
+
 def phase_lm(torch, device):
     """Yi-6B at full width and depth through ServeEngine (the main path of
     this slice), the decode-matches-forward invariant through the kernel,
@@ -3189,100 +3345,24 @@ def phase_lm(torch, device):
     eparams = engine.params
     out["engine_params_dtype"] = str(eparams["lm_head"].dtype)
     prompts = lm_prompts(cfg.vocab_size)
-
-    with uncounted():  # warm cuBLAS and the kernel's library
-        warm = torch.from_numpy(prompts[0][:PROMPT_LENS[0]])[None].to(device)
-        logits, caches = lm.prefill(cfg, eparams, {"tokens": warm},
-                                    SERVE_MAX_SEQ)
-        lm.decode_step(cfg, eparams, caches, logits.argmax(-1).to(torch.int32),
-                       torch.tensor([warm.shape[1]], device=device))
-        del caches
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    reset_counts()
-    reqs, seconds, first, ticks = serve_requests(torch, engine, prompts)
-    launches = read_counts()
-    want = {"megastep": 0, "raster": 0,
-            "flash": SERVE_REQUESTS * cfg.num_layers}
-    if launches != want:
-        raise AssertionError(f"yi-6b serving: launches {launches}, want {want}")
-    for r in reqs:
-        if len(r.output) != SERVE_NEW or not all(
-                0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"request {r.rid}: {len(r.output)} tokens, "
-                                 f"want {SERVE_NEW} in [0, {cfg.vocab_size})")
-    ttft = sorted(first.values())
-    decode_ticks = [s for s, n in ticks if n == 0]
-    generated = sum(len(r.output) for r in reqs)
-    out["serve"] = {
-        "arch": cfg.name, "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
-        "requests": SERVE_REQUESTS, "max_new_tokens": SERVE_NEW,
-        "prompt_tokens": int(sum(len(p) for p in prompts)),
-        "prompt_lens": [len(p) for p in prompts],
-        "seconds": seconds, "generated_tokens": generated,
-        "tokens_per_s": generated / seconds,
-        "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
-        "ticks": len(ticks), "decode_tick_ms_median":
-            1e3 * statistics.median(decode_ticks) if decode_ticks else None,
-        "admit_ticks_s": sum(s for s, n in ticks if n),
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "stats": engine.stats(),
-        "clock": "host clock; each tick ends in the tokens' host copy, so "
-                 "a first token is stamped at the end of its tick"}
+    out["serve"] = serve_cell(torch, lm, engine, prompts)
     del engine.state
     gc.collect()
     torch.cuda.empty_cache()
 
     errs = []
     with uncounted():
-        # tests/test_models.py::test_decode_matches_forward, through the
-        # kernel: prefill(L) + decode_step(L) against forward(L + 1), in
-        # bf16 through the kernel and the plain attention, and in f32
         toks = torch.from_numpy(np.resize(prompts[1], INVARIANT_L + 1)).to(
             device)[None].long()
-        runs = {"bfloat16 kernel": (cfg, eparams, "auto"),
-                "bfloat16 plain": (cfg, eparams, "torch")}
-        logits = {}
-        for what, (c, p, backend) in runs.items():
-            logits[what] = decode_vs_forward(lm, c, p, toks, backend)
-        p32 = lm.tree_map(lambda x: x.float(), eparams)
-        logits["float32 kernel"] = decode_vs_forward(
-            lm, dataclasses.replace(cfg, dtype="float32"), p32, toks, "auto")
-        del p32
-        inv = {what: logit_errors(*pair) for what, pair in logits.items()}
-        inv["bfloat16 kernel against plain, decode"] = logit_errors(
-            logits["bfloat16 kernel"][0], logits["bfloat16 plain"][0])
-        out["decode_matches_forward"] = {
-            "L": INVARIANT_L, "f32_tol": F32_LOGIT_TOL,
-            "bf16_rel_l2_tol": BF16_LOGIT_REL,
-            "max_abs_logit": float(logits["bfloat16 kernel"][1].abs().max()),
-            **inv}
-        emit({"check": "decode_matches_forward",
-              **out["decode_matches_forward"]})
-        got, ref = logits["float32 kernel"]
-        torch.testing.assert_close(
-            got, ref, rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL,
-            msg=lambda m: f"yi-6b f32 decode != forward: {m}")
-        for what in ("bfloat16 kernel", "bfloat16 kernel against plain, decode"):
-            if not inv[what]["rel_l2"] <= BF16_LOGIT_REL:
-                raise AssertionError(f"yi-6b decode != forward ({what}): "
-                                     f"{inv[what]}")
-        del logits
+        out["decode_matches_forward"] = check_decode_vs_forward(
+            torch, lm, cfg, eparams, toks)
 
         # the kernel on the real q, k and v of layers 0 and 31 of one
         # 2,048-token prefill
         toks = torch.from_numpy(np.resize(prompts[2], REAL_PROMPT)).to(device)[None]
-        with captured_attention({0, cfg.num_layers - 1}) as seen:
-            lm.prefill(cfg, eparams, {"tokens": toks}, SERVE_MAX_SEQ)
-        real = {}
-        for layer, (q, k, v, kw) in sorted(seen.items()):
-            checked = attention_check(torch, q, k, v,
-                                      f"yi-6b layer {layer}", **kw)
-            real[f"yi-6b layer {layer}"] = {
-                "q": list(q.shape), "k": list(k.shape), **kw, **checked}
-            errs.append(checked["max_abs_err"])
-        del seen, eparams, engine
+        real = real_layer_checks(torch, lm, cfg, eparams, toks)
+        errs += [c["max_abs_err"] for c in real.values()]
+        del eparams, engine
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3349,12 +3429,302 @@ def phase_lm(torch, device):
     return max(errs), out
 
 
+@contextlib.contextmanager
+def recorded_routing():
+    """Record the expert ids (`moe.top_k`'s idx) of every moe_apply call
+    inside the block, in call order."""
+    from repro_torch.models import moe
+
+    original, seen = moe.top_k, []
+
+    def spy(logits, k):
+        values, idx = original(logits, k)
+        seen.append(idx.clone())
+        return values, idx
+
+    moe.top_k = spy
+    try:
+        yield seen
+    finally:
+        moe.top_k = original
+
+
+@contextlib.contextmanager
+def replayed_routing(recorded):
+    """Route the moe_apply calls inside the block, in call order, to the
+    expert ids `recorded` (by recorded_routing), each call's gate logits
+    read from its own router logits at those ids; raises unless every
+    recorded routing was replayed."""
+    import torch
+
+    from repro_torch.models import moe
+
+    original, calls = moe.top_k, iter(recorded)
+
+    def spy(logits, k):
+        idx = next(calls)
+        return torch.gather(logits, -1, idx), idx
+
+    moe.top_k = spy
+    try:
+        yield
+    finally:
+        moe.top_k = original
+    if next(calls, None) is not None:
+        raise AssertionError("fewer moe_apply calls than routings recorded")
+
+
+def routed_pair(lm, cfg, params, toks):
+    """decode_vs_forward through the kernel, recording every routing, and
+    through the plain attention with those routings replayed, so that the
+    two differ only where the kernel and the plain attention do. Returns
+    (the kernel's (decode, forward) logits, the plain's, the routings)."""
+    with recorded_routing() as seen:
+        kernel = decode_vs_forward(lm, cfg, params, toks, "auto")
+    with replayed_routing(seen):
+        plain = decode_vs_forward(lm, cfg, params, toks, "torch")
+    return kernel, plain, seen
+
+
+def moe_checks(torch, lm, cfg, eparams, toks):
+    """decode against forward for a MoE model, and the kernel against the
+    plain attention on the same routings (routed_pair). In f32 on a
+    MOE_F32_L-token prompt (no drops possible): decode against forward and
+    the kernel's decode against the plain one's, both gated at
+    F32_LOGIT_TOL. In the compute dtype on `toks` (1, INVARIANT_L + 1): the
+    kernel's decode and forward against the plain ones', gated at
+    BF16_LOGIT_REL as check_decode_vs_forward gates them; decode against
+    forward through the kernel reported, not gated, beside the number of
+    (layer, token) routings whose top-k experts differ between
+    forward(L + 1) and prefill(L) + decode, and the entries each drops past
+    its capacity (forward may drop the last token, which a one-token
+    decode never drops)."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    p32 = lm.tree_map(lambda x: x.float(), eparams)
+    (got, ref), (plain, _), _ = routed_pair(
+        lm, dataclasses.replace(cfg, dtype="float32"), p32,
+        toks[:, :MOE_F32_L + 1])
+    del p32
+    out = {"arch": cfg.name, "f32_L": MOE_F32_L, "f32_tol": F32_LOGIT_TOL,
+           "bf16_rel_l2_tol": BF16_LOGIT_REL,
+           "float32 kernel": logit_errors(got, ref),
+           "float32 kernel against plain, decode": logit_errors(got, plain)}
+    for what, want in (("decode != forward", ref), ("kernel != plain", plain)):
+        torch.testing.assert_close(
+            got, want, rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL,
+            msg=lambda m: f"{cfg.name} f32 {what}: {m}")
+    (got, ref), (plain, plain_ref), seen = routed_pair(lm, cfg, eparams, toks)
+    for what, pair in (("decode", (got, plain)), ("forward", (ref, plain_ref))):
+        out[f"bfloat16 kernel against plain, {what}"] = errs = logit_errors(*pair)
+        if not errs["rel_l2"] <= BF16_LOGIT_REL:
+            raise AssertionError(f"{cfg.name} bf16 kernel != plain ({what}):"
+                                 f" {errs}")
+    n = cfg.num_layers
+    if len(seen) != 3 * n:
+        raise AssertionError(f"{cfg.name}: {len(seen)} routings, want {3 * n}")
+    fwd = torch.stack([x[0].sort(-1).values for x in seen[:n]])
+    cached = torch.stack([torch.cat([a[0], b[0]]).sort(-1).values
+                          for a, b in zip(seen[n:2 * n], seen[2 * n:])])
+    differ = (fwd != cached).any(-1)                   # (layers, L + 1)
+
+    def drops(idx):
+        """(entries past the capacity, whether the last token's are among
+        them) of one routing: ranks follow token order within an expert."""
+        counts = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
+        over = counts - moe.moe_capacity(idx.shape[1], cfg)
+        return int(over.clamp_min(0).sum()), bool((over[idx[0, -1]] > 0).any())
+
+    fwd_drops = [drops(x) for x in seen[:n]]
+    out["bfloat16 kernel"] = {
+        "L": toks.shape[1] - 1, **logit_errors(got, ref),
+        "max_abs_logit": float(ref.abs().max()),
+        "routings_differ": int(differ.sum()),
+        "routings": differ.numel(),
+        "tokens_with_a_routing_differing": int(differ.any(0).sum()),
+        "last_token_layers_differ": int(differ[:, -1].sum()),
+        "forward_entries_dropped": sum(d for d, _ in fwd_drops),
+        "prefill_entries_dropped": sum(drops(x)[0] for x in seen[n:2 * n]),
+        "forward_layers_dropping_the_last_token": sum(l for _, l in fwd_drops),
+        "gated": False}
+    emit({"check": "moe_decode_matches_forward", **out})
+    return out
+
+
+def phase_mla(torch, device):
+    """MiniCPM3-4B at full width and depth (random params from a seed):
+    lm.prefill of MLA_BATCH prompts of MLA_PROMPT tokens into a
+    SERVE_MAX_SEQ cache, then MLA_DECODES greedy lm.decode_step calls at a
+    scalar position, with the launch counts set to 0 just before the
+    prefill and read just after the last step (one flash launch per layer
+    per prefill and per step: the naive form attends through the (96, 64)
+    instantiation); the decode-matches-forward invariant through the
+    kernel; the kernel on the real q, k and v of the first and last
+    layers."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    cfg = get_config("minicpm3-4b")
+    params = lm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(LM_SEED), device)
+    out = {"phase": "mla", "arch": cfg.name, "layers": cfg.num_layers,
+           "params": sum(x.numel() for x in lm.tree_leaves(params))}
+    eparams = lm.compute_params(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(LM_SEED + 2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (MLA_BATCH, MLA_PROMPT))).to(device)
+
+    with uncounted():  # warm cuBLAS and the kernel's library
+        logits, caches = lm.prefill(cfg, eparams,
+                                    {"tokens": toks[:, :PROMPT_LENS[0]]},
+                                    SERVE_MAX_SEQ)
+        lm.decode_step(cfg, eparams, caches,
+                       logits[:, -1].argmax(-1).to(torch.int32)[:, None],
+                       PROMPT_LENS[0])
+        del logits, caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    t1 = time.perf_counter()
+    logits, caches = lm.prefill(cfg, eparams, {"tokens": toks}, SERVE_MAX_SEQ)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    generated = [tok]
+    for step in range(MLA_DECODES):
+        lg, caches = lm.decode_step(cfg, eparams, caches, tok,
+                                    MLA_PROMPT + step)
+        tok = lg.argmax(-1).to(torch.int32)[:, None]
+        generated.append(tok)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = read_counts()
+    want = {"megastep": 0, "raster": 0,
+            "flash": cfg.num_layers * (1 + MLA_DECODES)}
+    if launches != want:
+        raise AssertionError(f"minicpm3-4b: launches {launches}, want {want}")
+    generated = torch.cat(generated, dim=1)
+    if not (bool(torch.isfinite(lg).all()) and bool(
+            ((generated >= 0) & (generated < cfg.vocab_size)).all())):
+        raise AssertionError("minicpm3-4b: non-finite logits or tokens out "
+                             "of the vocabulary")
+    out["run"] = {
+        "batch": MLA_BATCH, "prompt": MLA_PROMPT, "max_seq": SERVE_MAX_SEQ,
+        "decode_steps": MLA_DECODES, "generated_tokens": generated.numel(),
+        "seconds": t3 - t1, "prefill_s": t2 - t1,
+        "decode_step_ms": 1e3 * (t3 - t2) / MLA_DECODES,
+        "tokens_per_s": generated.numel() / (t3 - t1),
+        "decode_tokens_per_s": MLA_BATCH * MLA_DECODES / (t3 - t2),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "clock": "host clock; prefill and decode each end in a synchronize"}
+    del logits, lg, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    errs = []
+    with uncounted():
+        out["decode_matches_forward"] = check_decode_vs_forward(
+            torch, lm, cfg, eparams, toks[:1, :INVARIANT_L + 1].long())
+        real = real_layer_checks(torch, lm, cfg, eparams, toks[:1])
+        errs += [c["max_abs_err"] for c in real.values()]
+    out["real_layer_checks"] = real
+    del eparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return max(errs), out
+
+
+def phase_moe(torch, device):
+    """OLMoE-1B-7B at full width and depth (random params from a seed)
+    through ServeEngine(slots=8, max_seq=4096): the requests of phase lm,
+    with the launch counts set to 0 just before run and read just after
+    (one flash launch per layer per prefill); moe_checks; the kernel on the
+    real q, k and v of the first and last layers of one prefill. Then
+    granite-moe-1b-a400m at full width and depth as a correctness cell:
+    moe_checks and the real layers. Returns (the real layers' worst
+    error, the phase's numbers)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = get_config("olmoe-1b-7b")
+    params = lm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(LM_SEED), device)
+    out = {"phase": "moe", "arch": cfg.name,
+           "params": sum(x.numel() for x in lm.tree_leaves(params))}
+    engine = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                         device=device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    prompts = lm_prompts(cfg.vocab_size)
+    out["serve"] = serve_cell(torch, lm, engine, prompts)
+    eparams = engine.params
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(LM_SEED + 3)
+    with uncounted():
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (1, INVARIANT_L + 1))).to(device)
+        out["decode_matches_forward"] = moe_checks(torch, lm, cfg, eparams, toks)
+        real = real_layer_checks(torch, lm, cfg, eparams, torch.from_numpy(
+            np.resize(prompts[2], REAL_PROMPT)).to(device)[None])
+    del eparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    cfg = get_config("granite-moe-1b-a400m")
+    eparams = lm.compute_params(cfg, lm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(LM_SEED), device))
+    with uncounted():
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (1, INVARIANT_L + 1))).to(device)
+        out["granite"] = moe_checks(torch, lm, cfg, eparams, toks)
+        real.update(real_layer_checks(torch, lm, cfg, eparams, torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (1, REAL_PROMPT))).to(device)))
+    out["granite"]["seconds"] = time.perf_counter() - t1
+    out["real_layer_checks"] = real
+    del eparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return max(c["max_abs_err"] for c in real.values()), out
+
+
 def phase_lm_profile(torch, device):
-    """Where the serving run's time goes, on a fresh Yi-6B engine: a
+    """Where the serving runs' time goes: on a fresh Yi-6B engine, a
     profiler window over decode ticks (every slot decodes whether active or
     not, so the zeroed caches cost what full ones do) and over one
-    2,048-token prefill. Last of the phases: a profiler leaves the CUDA
-    launches of the process slower after it stops."""
+    2,048-token prefill; the same on a fresh OLMoE-1B-7B engine; and
+    MiniCPM3-4B's decode steps after phase mla's 4 × 2,048-token prefill.
+    Last of the phases: a profiler leaves the CUDA launches of the process
+    slower after it stops."""
     import gc
 
     import numpy as np
@@ -3379,6 +3749,40 @@ def phase_lm_profile(torch, device):
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+
+    cfg = get_config("olmoe-1b-7b")
+    engine = ServeEngine(cfg, lm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(LM_SEED), device),
+        slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device)
+    gc.collect()
+    toks = torch.from_numpy(np.resize(lm_prompts(cfg.vocab_size)[2],
+                                      REAL_PROMPT)).to(device)[None]
+    with uncounted():
+        out["olmoe_decode_tick"] = profile_window(
+            torch, lambda: engine._decode(engine.params, engine.state),
+            PROFILE_TICKS)
+        out["olmoe_prefill_2048"] = profile_window(torch, lambda: lm.prefill(
+            cfg, engine.params, {"tokens": toks}, SERVE_MAX_SEQ), 1)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("minicpm3-4b")
+    params = lm.compute_params(cfg, lm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(LM_SEED), device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks = torch.from_numpy(np.random.default_rng(LM_SEED + 2).integers(
+        0, cfg.vocab_size, (MLA_BATCH, MLA_PROMPT))).to(device)
+    with uncounted():
+        logits, caches = lm.prefill(cfg, params, {"tokens": toks}, SERVE_MAX_SEQ)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        out["minicpm3_decode_step"] = profile_window(
+            torch, lambda: lm.decode_step(cfg, params, caches, tok, MLA_PROMPT),
+            PROFILE_TICKS)
+    del params, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
     emit({"phase": "lm_profile", "seconds": time.perf_counter() - t0, **out})
     return out
 
@@ -3400,9 +3804,15 @@ def main() -> int:
     name, smi = phase_device(torch)
     bw, flops, bf16_flops = card_row(name)
     phase_build()
-    flash_err, flash = phase_attention(torch, device, bw, flops, bf16_flops)
+    flash_err, flash, flash_mla = phase_attention(torch, device, bw, flops,
+                                                  bf16_flops)
     lm_err, lm_out = phase_lm(torch, device)
-    flash_err = max(flash_err, lm_err)
+    mla_err, mla_out = phase_mla(torch, device)
+    moe_err, moe_out = phase_moe(torch, device)
+    flash_err = max(flash_err, lm_err, mla_err, moe_err)
+    flash_paths = {"lm": lm_out["serve"]["launches"]["flash"],
+                   "mla": mla_out["run"]["launches"]["flash"],
+                   "moe": moe_out["serve"]["launches"]["flash"]}
     mega_err = phase_kernel(torch, device)
     raster_err, grid_raster = phase_raster(torch, device, bw, flops)
     pools, vmap_pools, render_pools, launches = phase_main(torch, device, sync)
@@ -3502,7 +3912,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash.cu",
         "replaces": "src/repro/kernels/attention/flash.py:84",
-        "launches": lm_out["serve"]["launches"]["flash"],
+        "launches": sum(flash_paths.values()),
+        "launches_per_path": flash_paths,
         "max_abs_err": flash_err,
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
@@ -3513,6 +3924,10 @@ def main() -> int:
         "shape": {k: flash[k] for k in ("case", "dtype", "heads", "B", "Lq",
                                         "Lk", "causal", "live_pairs", "bytes",
                                         "flops")},
+        "minicpm3_heads": {k: flash_mla[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "max_abs_err", "case", "dtype", "heads", "B", "Lq", "Lk", "causal",
+            "live_pairs", "bytes", "flops")},
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,7 +8,9 @@ from the repository root, on a machine with a CUDA card and the CUDA
 toolkit. Each DIR holds a megastep.cu, a raster.cu, a flash.cu or several,
 with the C entry points of src/repro_torch/csrc's: an earlier commit's
 sources (`git archive <commit> src/repro_torch/csrc`, where the interface
-is the same), or a copy of a source with other constants. They are built in
+is the same: flash.cu's entry point takes a value head dim `Dv` after `D`
+since MLA's instantiation, so an older flash.cu does not bind), or a copy
+of a source with other constants. They are built in
 parallel with the package's nvcc flags into the package's _build/ab/, and
 each build runs through the package's own wrapper, whose library is
 pointed at the build for the while: every launch is checked as the

@@ -5,9 +5,14 @@
 // _flash_kernel), widened to the contract of the plain version
 // kernels/attention/ref.py::attention_ref, which is what the LM stack's
 // models/attention.py::_attend_chunked asks of it:
-//   - q (B, Hq, Lq, D), k and v (B, Hkv, Lk, D), contiguous, float32 or
-//     bfloat16; out (B, Hq, Lq, D) in q's dtype. Query head h reads KV head
-//     h / (Hq / Hkv): GQA without repeating K and V.
+//   - q (B, Hq, Lq, D), k (B, Hkv, Lk, D) and v (B, Hkv, Lk, Dv),
+//     contiguous, float32 or bfloat16; out (B, Hq, Lq, Dv) in q's dtype.
+//     Query head h reads KV head h / (Hq / Hkv): GQA without repeating K
+//     and V. The value head dim is a template parameter of its own: MLA
+//     (MiniCPM3-4B) attends with q and k of nope + rope = 96 and v of
+//     v_head_dim = 64 (the JAX package's _attend_chunked takes Dv from v).
+//     Q·Kᵀ and the default scale use D; the V tile, P·V, the accumulator
+//     and the output use Dv.
 //   - Query row i sits at absolute position qpos = q_offset + i (cached
 //     prefill attends a prompt against the whole cache; scalar decode is
 //     Lq = 1 at q_offset = pos). Key j is visible where j < Lk, j <= qpos
@@ -21,10 +26,10 @@
 //     no key gives 0, as attention_ref does; where a row sees a key the two
 //     are the same numbers.
 //
-// Bound: operations, at the LM's shapes. A live query-key pair costs 4·D
-// flops (q·k and p·v); a 2,048-token causal prefill of Yi-6B (32 query
-// heads, D = 128) is 34 GFLOP against 37 MB moved, 35 µs at the card's
-// 989 TFLOP/s dense bf16 tensor rate against 11 µs at 3.35 TB/s.
+// Bound: operations, at the LM's shapes. A live query-key pair costs
+// 2·(D + Dv) flops (q·k and p·v); a 2,048-token causal prefill of Yi-6B
+// (32 query heads, D = Dv = 128) is 34 GFLOP against 37 MB moved, 35 µs at
+// the card's 989 TFLOP/s dense bf16 tensor rate against 11 µs at 3.35 TB/s.
 //
 // Two kernels, picked by dtype, behind the one C entry point:
 //
@@ -39,9 +44,10 @@
 // heads and blockIdx.y the tiles backwards, so every head's long causal
 // tiles are launched first. Q, K and V are staged in shared memory as bf16
 // by cp.async (16 bytes a thread, ragged rows zero-filled), rows padded by
-// 16 bytes: a row of D + 8 elements is 4 (mod 8) 16-byte units, so the 8
-// rows an ldmatrix phase reads fall in 8 distinct 4-bank groups at every
-// head dim (16, 32, 64, 80, 128). K and V tiles of 64 keys come through a
+// 16 bytes: a row of W + 8 elements (W = D for Q and K, Dv for V, each a
+// multiple of 16) is an odd number of 16-byte units, so the 8 rows an
+// ldmatrix phase reads fall in 8 distinct 4-bank groups at every head dim
+// (16, 32, 64, 80, 96, 128). K and V tiles of 64 keys come through a
 // ring of two stages: the next tile's loads are in flight while this tile's
 // products run; two barriers a tile. S = Q·Kᵀ is mma.sync.m16n8k16 bf16 ->
 // f32, with Q's and K's fragments by ldmatrix (Q's reloaded at each k-step
@@ -51,8 +57,9 @@
 // range reduction), with the CUDA-core kernel's mask rules: p = 0 exactly
 // where masked, and tiles that need no mask skip it. P·V reuses the S
 // accumulator's layout as the A operand (FlashAttention-2's register
-// trick), V fragments by ldmatrix.trans. At D = 128: 168 registers, 87 KB
-// of shared memory, two blocks an SM.
+// trick), V fragments by ldmatrix.trans: D / 16 k-steps for S, Dv / 16
+// column pairs for P·V. At D = 128: 168 registers, 87 KB of shared memory,
+// two blocks an SM; at (96, 64) 57 KB.
 //
 // Numbers of the bf16 path. A single bf16 P rounds each probability by up
 // to 2^-9 relative, which moves the f32 output across a bf16 rounding
@@ -71,10 +78,10 @@
 // 64-row query tile of one (batch row, query head); blockIdx.x runs the
 // tiles backwards, so the long causal tiles start first. The query tile is
 // staged once in shared memory as float32, transposed; each 64-key tile of
-// K (transposed) and then V is staged through one shared buffer. Each
-// thread owns a 4×4 patch of the 64×64 score tile (rows ty + 16i, columns
-// tx + 16j) and the same 4 rows of the output (columns tx + 16j, D/16 of
-// them), so a row's max and sum are shuffles within a half-warp and its m,
+// K (transposed) and then V is staged through one shared buffer of
+// max(D, Dv) × 65 floats. Each thread owns a 4×4 patch of the 64×64 score
+// tile (rows ty + 16i, columns tx + 16j) and the same 4 rows of the output
+// (columns tx + 16j, Dv/16 of them), so a row's max and sum are shuffles within a half-warp and its m,
 // l and acc stay in registers. Padded shared strides (65 floats) keep the
 // transposed stores and the inner loops' reads free of bank conflicts; at
 // D = 128 the block holds 83 KB of shared memory, so two blocks share an
@@ -104,24 +111,26 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes() {
-  // query tile (D × kPad) + one K-or-V tile (D × kPad >= kBK × D)
-  // + probabilities (kBQ × kPad), float32
-  return sizeof(float) * (2 * D * kPad + kBQ * kPad);
+  // query tile (D × kPad) + one K-or-V tile (max(D, DV) × kPad: K is D ×
+  // kPad, V kBK × DV <= DV × kPad) + probabilities (kBQ × kPad), float32
+  return sizeof(float) * ((D + (D > DV ? D : DV)) * kPad + kBQ * kPad);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv,
              int Lq, int Lk, int causal, int window, int q_offset, float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kCols = D / 16;   // output columns per thread
+  static_assert(D % 16 == 0 && DV % 16 == 0,
+                "head dims must be multiples of 16");
+  constexpr int kCols = DV / 16;  // output columns per thread
+  constexpr int kKV = D > DV ? D : DV;
   extern __shared__ float smem[];
   float* qs = smem;               // [D][kPad]: q tile, transposed
-  float* kv = qs + D * kPad;      // [D][kPad]: K tile, transposed; then V [kBK][D]
-  float* ps = kv + D * kPad;      // [kBQ][kPad]: probabilities
+  float* kv = qs + D * kPad;      // [D][kPad]: K tile, transposed; then V [kBK][DV]
+  float* ps = kv + kKV * kPad;    // [kBQ][kPad]: probabilities
 
   const int nq = (Lq + kBQ - 1) / kBQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;
@@ -129,8 +138,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const float* qg = q + ((size_t)b * Hq + h) * Lq * D;
   const float* kg = k + ((size_t)b * Hkv + hk) * Lk * D;
-  const float* vg = v + ((size_t)b * Hkv + hk) * Lk * D;
-  float* og = o + ((size_t)b * Hq + h) * Lq * D;
+  const float* vg = v + ((size_t)b * Hkv + hk) * Lk * DV;
+  float* og = o + ((size_t)b * Hq + h) * Lq * DV;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
@@ -212,9 +221,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();  // P written; K no longer read
 
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int c = idx / D, d = idx - c * D;
-      kv[c * D + d] = k0 + c < Lk ? vg[(size_t)(k0 + c) * D + d] : 0.0f;
+    for (int idx = tid; idx < kBK * DV; idx += kThreads) {
+      const int c = idx / DV, d = idx - c * DV;
+      kv[c * DV + d] = k0 + c < Lk ? vg[(size_t)(k0 + c) * DV + d] : 0.0f;
     }
     __syncthreads();
 
@@ -229,7 +238,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * kPad + c];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) w[j] = kv[c * D + tx + 16 * j];
+      for (int j = 0; j < kCols; ++j) w[j] = kv[c * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -248,7 +257,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-20f);
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
-      og[(size_t)r * D + tx + 16 * j] = acc[i][j] / denom;
+      og[(size_t)r * DV + tx + 16 * j] = acc[i][j] / denom;
   }
 }
 
@@ -256,13 +265,19 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int kTcThreads = 32 * (kBQ / 16);   // each warp owns 16 query rows
 
-template <int D>
+// a 64-row bf16 tile of rows W elements wide, padded
+template <int W>
 struct Bf16Tile {
-  static constexpr int kStride = D + 8;              // elements per shared row
+  static constexpr int kStride = W + 8;              // elements per shared row
   static constexpr int kBytes = kBK * kStride * 2;   // one 64-row tile
-  // the query tile, then the ring: K stage 0, K stage 1, V stage 0, V stage 1
-  static constexpr size_t kSmem = 5 * (size_t)kBytes;
 };
+
+// the query tile, then the ring: K stage 0, K stage 1 (rows of D), V stage
+// 0, V stage 1 (rows of DV)
+template <int D, int DV>
+constexpr size_t bf16_smem() {
+  return 3 * (size_t)Bf16Tile<D>::kBytes + 2 * (size_t)Bf16Tile<DV>::kBytes;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -319,39 +334,44 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
-// rows [r0, r0 + 64) of a (n, D) bf16 matrix into a padded shared tile;
+// rows [r0, r0 + 64) of a (n, W) bf16 matrix into a padded shared tile;
 // rows at or past n are zero
-template <int D>
+template <int W>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
                                           int r0, int n) {
-  constexpr int kChunks = D / 8;     // 16-byte chunks per row
+  constexpr int kChunks = W / 8;     // 16-byte chunks per row
   static_assert(kBK * kChunks % kTcThreads == 0, "whole chunks per thread");
 #pragma unroll
   for (int i = 0; i < kBK * kChunks / kTcThreads; ++i) {
     const int c = threadIdx.x + i * kTcThreads;
     const int r = c / kChunks, ch = c - r * kChunks;
     const bool in = r0 + r < n;
-    cp_async16(dst + (r * Bf16Tile<D>::kStride + ch * 8) * 2,
-               src + (size_t)(in ? r0 + r : 0) * D + ch * 8, in ? 16 : 0);
+    cp_async16(dst + (r * Bf16Tile<W>::kStride + ch * 8) * 2,
+               src + (size_t)(in ? r0 + r : 0) * W + ch * 8, in ? 16 : 0);
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kTcThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Lq,
                   int Lk, int causal, int window, int q_offset, float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kStride = Bf16Tile<D>::kStride;
+  static_assert(D % 16 == 0 && DV % 16 == 0,
+                "head dims must be multiples of 16");
+  constexpr int kStride = Bf16Tile<D>::kStride;     // Q and K rows
+  constexpr int kVStride = Bf16Tile<DV>::kStride;   // V rows
   constexpr int kTileBytes = Bf16Tile<D>::kBytes;
-  constexpr int kSteps = D / 16;     // k-steps of Q·Kᵀ; 16-column pairs of P·V
+  constexpr int kSteps = D / 16;     // k-steps of Q·Kᵀ
+  constexpr int kVSteps = DV / 16;   // 16-column pairs of P·V
   constexpr int kN = kBK / 8;        // 8-key column tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t q_tile = smem_addr(smem_raw);
   const auto k_stage = [&](int st) { return q_tile + (1 + st) * kTileBytes; };
-  const auto v_stage = [&](int st) { return q_tile + (3 + st) * kTileBytes; };
+  const auto v_stage = [&](int st) {
+    return q_tile + 3 * kTileBytes + st * Bf16Tile<DV>::kBytes;
+  };
 
   const int nq = (Lq + kBQ - 1) / kBQ;
   const int q0 = (nq - 1 - (int)blockIdx.y) * kBQ;
@@ -359,8 +379,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int hk = h / (Hq / Hkv);
   const __nv_bfloat16* qg = q + ((size_t)b * Hq + h) * Lq * D;
   const __nv_bfloat16* kg = k + ((size_t)b * Hkv + hk) * Lk * D;
-  const __nv_bfloat16* vg = v + ((size_t)b * Hkv + hk) * Lk * D;
-  __nv_bfloat16* og = o + ((size_t)b * Hq + h) * Lq * D;
+  const __nv_bfloat16* vg = v + ((size_t)b * Hkv + hk) * Lk * DV;
+  __nv_bfloat16* og = o + ((size_t)b * Hq + h) * Lq * DV;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;      // fragment row and column pair
@@ -378,7 +398,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   load_tile<D>(q_tile, qg, q0, Lq);
   if (n_tiles > 0) {
     load_tile<D>(k_stage(0), kg, k_first, Lk);
-    load_tile<D>(v_stage(0), vg, k_first, Lk);
+    load_tile<DV>(v_stage(0), vg, k_first, Lk);
   }
   cp_async_commit();
 
@@ -389,9 +409,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // scores are kept in base 2: s·scale·log2(e), so p = exp2(s - m)
   const float scale2 = scale * 1.4426950408889634f;
   float m_run[2] = {kNeg, kNeg}, l_run[2] = {0.0f, 0.0f};
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
 
@@ -400,7 +420,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = k_first + it * kBK;
     if (it + 1 < n_tiles) {   // the next tile's loads overlap this one's work
       load_tile<D>(k_stage(st ^ 1), kg, k0 + kBK, Lk);
-      load_tile<D>(v_stage(st ^ 1), vg, k0 + kBK, Lk);
+      load_tile<DV>(v_stage(st ^ 1), vg, k0 + kBK, Lk);
     }
     cp_async_commit();
     cp_async_wait<1>();       // this tile's group has landed
@@ -469,7 +489,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           l_run[e >> 1] += p;
         }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         acc[j][0] *= alpha[0];
         acc[j][1] *= alpha[0];
         acc[j][2] *= alpha[1];
@@ -485,9 +505,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
         split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-        for (int np = 0; np < kSteps; ++np) {
+        for (int np = 0; np < kVSteps; ++np) {
           uint32_t vf[4];
-          ldmatrix_x4_trans(vf, v_stage(st) + ((kk * 16 + (mat & 1) * 8 + mrow) * kStride
+          ldmatrix_x4_trans(vf, v_stage(st) + ((kk * 16 + (mat & 1) * 8 + mrow) * kVStride
                                                + np * 16 + (mat >> 1) * 8) * 2);
           mma_bf16(acc[2 * np], ph, vf[0], vf[1]);
           mma_bf16(acc[2 * np + 1], ph, vf[2], vf[3]);
@@ -509,45 +529,47 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= Lq) continue;
     const float denom = fmaxf(l, 1e-20f);
-    uint32_t* out = reinterpret_cast<uint32_t*>(og + (size_t)row * D + 2 * t4);
+    uint32_t* out = reinterpret_cast<uint32_t*>(og + (size_t)row * DV + 2 * t4);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       out[j * 4] = pack_bf16(acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch_f32(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
                int q_offset, float scale, const void* q, const void* k,
                const void* v, void* o, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<D, DV>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)((Lq + kBQ - 1) / kBQ), (unsigned)Hq, (unsigned)B);
-  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Lq, Lk,
       causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 int launch_bf16(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
                 int q_offset, float scale, const void* q, const void* k,
                 const void* v, void* o, cudaStream_t stream) {
-  constexpr size_t smem = Bf16Tile<D>::kSmem;
+  constexpr size_t smem = bf16_smem<D, DV>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_bf16_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int nq = (Lq + kBQ - 1) / kBQ;
   if (nq > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)Hq, (unsigned)nq, (unsigned)B);
-  flash_bf16_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+  flash_bf16_kernel<D, DV><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Hq,
       Hkv, Lq, Lk, causal, window, q_offset, scale);
@@ -556,12 +578,13 @@ int launch_bf16(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
 
 }  // namespace
 
-// Attention of q over k and v on `stream`; dtype 0 is float32 (the CUDA-core
-// kernel), 1 bfloat16 (the tensor-core kernel; q, k, v and o 16-byte
-// aligned). Returns the launch's cudaError_t (cudaErrorInvalidValue for a
-// head dim, dtype or shape the kernels are not built for).
+// Attention of q (head dim D) over k (D) and v (Dv) on `stream`; dtype 0 is
+// float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core kernel; q, k,
+// v and o 16-byte aligned). Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for a pair of head dims, dtype or shape the
+// kernels are not built for).
 extern "C" int flash_attention(int dtype, int B, int Hq, int Hkv, int Lq,
-                               int Lk, int D, int causal, int window,
+                               int Lk, int D, int Dv, int causal, int window,
                                int q_offset, float scale, const void* q,
                                const void* k, const void* v, void* o,
                                void* stream) {
@@ -569,21 +592,21 @@ extern "C" int flash_attention(int dtype, int B, int Hq, int Hkv, int Lq,
       B > 65535 || Hq > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-#define FLASH_CASE(d)                                                         \
-  case d:                                                                     \
-    return dtype == 0                                                         \
-               ? launch_f32<d>(B, Hq, Hkv, Lq, Lk, causal, window, q_offset,  \
-                               scale, q, k, v, o, s)                          \
-               : launch_bf16<d>(B, Hq, Hkv, Lq, Lk, causal, window, q_offset, \
-                                scale, q, k, v, o, s);
-    FLASH_CASE(16)
-    FLASH_CASE(32)
-    FLASH_CASE(64)
-    FLASH_CASE(80)
-    FLASH_CASE(128)
+  // the (D, Dv) pairs built: D = Dv for the GQA models (Yi 128, Danube 80,
+  // the tests'), (96, 64) for MLA's naive form (MiniCPM3-4B)
+#define FLASH_CASE(d, dv)                                                       \
+  if (D == d && Dv == dv)                                                       \
+    return dtype == 0                                                           \
+               ? launch_f32<d, dv>(B, Hq, Hkv, Lq, Lk, causal, window,          \
+                                   q_offset, scale, q, k, v, o, s)              \
+               : launch_bf16<d, dv>(B, Hq, Hkv, Lq, Lk, causal, window,         \
+                                    q_offset, scale, q, k, v, o, s);
+  FLASH_CASE(16, 16)
+  FLASH_CASE(32, 32)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(80, 80)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(96, 64)
 #undef FLASH_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -17,8 +17,10 @@ import ctypes
 
 import torch
 
-#: head dims the kernel is instantiated for (Yi 128, Danube 80, the tests')
-HEAD_DIMS = (16, 32, 64, 80, 128)
+#: (D, Dv) head-dim pairs the kernels are instantiated for: D = Dv for the
+#: GQA models (Yi 128, Danube 80, the tests'), (96, 64) for MLA's naive form
+#: (MiniCPM3-4B: q and k of nope + rope, v of v_head_dim)
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128), (96, 64))
 #: dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -27,7 +29,7 @@ def _bind(lib: ctypes.CDLL):
     """lib's C entry point `flash_attention`, typed."""
     fn = lib.flash_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_float]
+        fn.argtypes = ([ctypes.c_int] * 11 + [ctypes.c_float]
                        + [ctypes.c_void_p] * 5)
         fn.restype = ctypes.c_int
     return fn
@@ -43,11 +45,33 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
                          q_offset: int = 0,
                          scale: float | None = None) -> torch.Tensor:
-    """q (B, Hq, Lq, D), k and v (B, Hkv, Lk, D), contiguous float32 or
-    bfloat16 on one CUDA device, 16-byte aligned, Hq a multiple of Hkv ->
-    (B, Hq, Lq, D) in q's dtype, as one CUDA launch. Query row i sits at
-    absolute position q_offset + i; key j is visible where j <= q_offset + i
-    (causal) and j > q_offset + i - window (window > 0)."""
+    """q (B, Hq, Lq, D), k (B, Hkv, Lk, D) and v (B, Hkv, Lk, Dv),
+    contiguous float32 or bfloat16 on one CUDA device, 16-byte aligned, Hq a
+    multiple of Hkv -> (B, Hq, Lq, Dv) in q's dtype, as one CUDA launch.
+    Query row i sits at absolute position q_offset + i; key j is visible
+    where j <= q_offset + i (causal) and j > q_offset + i - window (window
+    > 0). `scale` defaults to D ** -0.5. A (D, Dv) pair the kernels are not
+    built for (`HEAD_DIMS`) raises NotImplementedError: nothing runs the
+    plain version in its place."""
+    # shapes and head dims first: a pair the kernels are not built for is
+    # refused as such on any device
+    if not all(x.dim() == 4 for x in (q, k, v)):
+        raise ValueError(f"flash_attention_cuda takes 4-D q, k and v; got "
+                         f"{q.dim()}-, {k.dim()}- and {v.dim()}-D")
+    b, hq, lq, d = q.shape
+    _, hkv, lk, _ = k.shape
+    dv = v.shape[3]
+    if (k.shape[0] != b or k.shape[3] != d or tuple(v.shape[:3]) != tuple(k.shape[:3])
+            or hkv < 1 or hq % hkv):
+        raise ValueError(f"flash_attention_cuda takes q (B, Hq, Lq, D), k "
+                         f"(B, Hkv, Lk, D) and v (B, Hkv, Lk, Dv) with Hq % Hkv "
+                         f"== 0; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if (d, dv) not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_cuda is built for (D, Dv) in {HEAD_DIMS}; got "
+            f"({d}, {dv}). MLA's absorbed form attends over the latent with "
+            f"(288, 256) and one KV head: its instantiation is ROADMAP B4")
     for what, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
             raise ValueError(f"flash_attention_cuda takes CUDA tensors; {what}"
@@ -57,31 +81,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 f"flash_attention_cuda takes contiguous float32 or bfloat16 "
                 f"of one dtype; {what} is {x.dtype} (q {q.dtype}), "
                 f"contiguous={x.is_contiguous()}")
-        if x.device != q.device or x.dim() != 4:
-            raise ValueError(f"{what} is {x.dim()}-D on {x.device}; q is "
-                             f"4-D on {q.device}")
-    b, hq, lq, d = q.shape
-    _, hkv, lk, _ = k.shape
-    if (k.shape[0] != b or k.shape[3] != d or tuple(v.shape) != tuple(k.shape)
-            or hkv < 1 or hq % hkv):
-        raise ValueError(f"flash_attention_cuda takes q (B, Hq, Lq, D), k and "
-                         f"v (B, Hkv, Lk, D) with Hq % Hkv == 0; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda is built for head dims "
-                         f"{HEAD_DIMS}; got {d}")
+        if x.device != q.device:
+            raise ValueError(f"{what} is on {x.device}; q is on {q.device}")
     if min(b, hq, lq, lk) < 1 or max(lq, lk, abs(q_offset), abs(window)) >= 2**30:
         raise ValueError(f"flash_attention_cuda needs B, Hq, Lq, Lk >= 1 and "
                          f"lengths, q_offset and window below 2**30; got "
                          f"{b}, {hq}, {lq}, {lk}, {q_offset}, {window}")
     scale = (d ** -0.5) if scale is None else scale
-    out = torch.empty_like(q)
+    out = q.new_empty((b, hq, lq, dv))
     for what, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention_cuda takes 16-byte aligned "
                              f"tensors; {what} is at {x.data_ptr():#x}")
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
-    rc = _library()(DTYPES[q.dtype], b, hq, hkv, lq, lk, d, int(bool(causal)),
+    rc = _library()(DTYPES[q.dtype], b, hq, hkv, lq, lk, d, dv, int(bool(causal)),
                     int(window), int(q_offset), float(scale), ptr(q),
                     ptr(k), ptr(v), ptr(out), ctypes.c_void_p(
                         torch.cuda.current_stream(q.device).cuda_stream))

@@ -19,7 +19,10 @@ BACKENDS = ("auto", "cuda", "torch")
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, q_offset: int = 0,
               scale: float | None = None, backend: str = "auto") -> torch.Tensor:
-    """Multi-head GQA attention (B, Hq, Lq, D) × (B, Hkv, Lk, D) -> (B, Hq, Lq, D)."""
+    """Multi-head GQA attention: q (B, Hq, Lq, D) over k (B, Hkv, Lk, D) and
+    v (B, Hkv, Lk, Dv) -> (B, Hq, Lq, Dv); `scale` defaults to D ** -0.5.
+    On the card a (D, Dv) pair the kernel is not built for raises
+    NotImplementedError (flash.HEAD_DIMS)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")

@@ -16,13 +16,14 @@ import torch
 def attention_ref(
     q: torch.Tensor,  # (B, Hq, Lq, D)
     k: torch.Tensor,  # (B, Hkv, Lk, D)
-    v: torch.Tensor,  # (B, Hkv, Lk, D)
+    v: torch.Tensor,  # (B, Hkv, Lk, Dv): the value head dim may differ (MLA)
     *,
     causal: bool = True,
     window: int = 0,          # 0 = unbounded; else keys in (qpos-window, qpos]
     q_offset: int = 0,        # absolute position of q[0] (decode/prefill chunking)
-    scale: float | None = None,
+    scale: float | None = None,       # default D ** -0.5
 ) -> torch.Tensor:
+    """-> (B, Hq, Lq, Dv) in q's dtype."""
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
     if hq % hkv:

@@ -3,10 +3,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --requests 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --no-reduced
 
-The first serves the reduced config, the second the full one (Yi-6B at 32
-layers, 24.2 GB of f32 params); both run on the CUDA card, or on
-`--device cpu`. Params are random, drawn from `--seed`.
+The first serves the reduced config, the others the full ones (Yi-6B at 32
+layers, 24.2 GB of f32 params; OLMoE-1B-7B, 27.7 GB; Granite-MoE 1B-A400M);
+all run on the CUDA card, or on `--device cpu`. Params are random, drawn
+from `--seed`. An MLA arch (minicpm3-4b) is refused before its params are
+drawn: the engine's per-slot decode cannot run MLA (serving/engine.py::
+check_servable).
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.engine import Request, ServeEngine, check_servable
 
 
 def main(argv=None):
@@ -38,6 +43,7 @@ def main(argv=None):
     cfg = get_config(args.arch, reduced=args.reduced)
     if cfg.is_encoder_decoder:
         raise SystemExit("use a decoder-only arch for the text-serving driver")
+    check_servable(cfg)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device)

@@ -1,5 +1,5 @@
-"""GQA attention blocks (full / sliding-window) with KV caches (port of
-`repro.models.attention`; MLA and cross attention wait, ROADMAP A13).
+"""Attention blocks: GQA (full / sliding-window) and MLA, with KV caches
+(port of `repro.models.attention`; cross attention waits, ROADMAP A13).
 
 Attention with no cache, prefill and scalar-position decode go through
 `kernels.attention.ops.attention` (the JAX package's `_attend_chunked`): the
@@ -12,10 +12,19 @@ kernel: the engine's steady-state decode launches no attention kernel.
 
 Cache layout (decode): k/v (B, Hkv, S_max, hd) written at `pos`;
 sliding-window blocks keep S_max = window and write at `pos % window`
-(ring), so danube caches are O(window). Unlike the JAX package's
-functional updates, the cache tensors are written IN PLACE and returned:
-`gqa_apply` mutates the `KVCache` it is given. The JAX package's
-`shard_hint` layout pins have no meaning on one card and are dropped.
+(ring), so danube caches are O(window). MLA caches the compressed latent
+c_kv (B, S_max, kv_lora_rank) and the shared rotary key (B, S_max, rope).
+Unlike the JAX package's functional updates, the cache tensors are written
+IN PLACE and returned: `gqa_apply` and `mla_apply` mutate the cache they
+are given. The JAX package's `shard_hint` layout pins have no meaning on
+one card and are dropped.
+
+MLA's naive form expands the latent to per-head keys (nope + rope = 96 at
+MiniCPM3-4B) and values (v_head_dim = 64) and attends through the kernel's
+(96, 64) instantiation; its absorbed form (`cfg.mla_absorb`, off in every
+config) attends over the latent with (kv_lora_rank + rope, kv_lora_rank)
+and one KV head, which the kernel is not built for: on the card it raises
+NotImplementedError (ROADMAP B4), on the CPU it runs the plain version.
 """
 from __future__ import annotations
 
@@ -44,6 +53,27 @@ def gqa_init(gen: torch.Generator, cfg, dtype, lead=()):
         p["q_scale"] = torch.zeros(lead + (hd,), dtype=dtype, device=gen.device)
         p["k_scale"] = torch.zeros(lead + (hd,), dtype=dtype, device=gen.device)
     return p
+
+
+def mla_init(gen: torch.Generator, cfg, dtype, lead=()):
+    """The JAX package's MLA tree: the query down-projection and its norm
+    scale, the query up-projection, the kv down-projection (latent + shared
+    rotary key) and its norm scale, the kv up-projection, the output;
+    `lead` stacks them over layers."""
+    d, hq = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    lead = tuple(lead)
+    zeros = lambda n: torch.zeros(lead + (n,), dtype=dtype, device=gen.device)
+    return {
+        "w_dq": dense_init(gen, lead + (d, qr), dtype, fan_in=d),
+        "q_scale": zeros(qr),
+        "w_uq": dense_init(gen, lead + (qr, hq * (nope + rope)), dtype, fan_in=qr),
+        "w_dkv": dense_init(gen, lead + (d, kvr + rope), dtype, fan_in=d),
+        "kv_scale": zeros(kvr),
+        "w_ukv": dense_init(gen, lead + (kvr, hq * (nope + vd)), dtype, fan_in=kvr),
+        "wo": dense_init(gen, lead + (hq * vd, d), dtype, fan_in=hq * vd),
+    }
 
 
 # -- exact attention core -----------------------------------------------------
@@ -175,4 +205,98 @@ def gqa_apply(
     return out, new_cache
 
 
-__all__ = ["KVCache", "gqa_apply", "gqa_cache_init", "gqa_init"]
+# -- MLA block ----------------------------------------------------------------
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor     # (B, S, kv_lora_rank) compressed latent
+    k_rope: torch.Tensor   # (B, S, rope_dim) shared positional key
+
+
+def mla_cache_init(cfg, batch: int, max_seq: int, dtype, device=None,
+                   lead=()) -> MLACache:
+    """Zeroed caches; `lead` stacks them over layers."""
+    lead = tuple(lead)
+    return MLACache(
+        torch.zeros(lead + (batch, max_seq, cfg.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros(lead + (batch, max_seq, cfg.qk_rope_head_dim), dtype=dtype,
+                    device=device))
+
+
+def mla_apply(
+    params,
+    cfg,
+    x: torch.Tensor,                  # (B, L, d)
+    *,
+    positions: Optional[torch.Tensor] = None,    # (L,)
+    cache: Optional[MLACache] = None,
+    cache_pos=None,                   # absolute position of x[0]: an int or 0-d tensor
+) -> Tuple[torch.Tensor, Optional[MLACache]]:
+    b, l, d = x.shape
+    hq = cfg.num_heads
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    dt = x.dtype
+    if cache is not None and isinstance(cache_pos, torch.Tensor) and cache_pos.dim():
+        raise NotImplementedError(
+            "mla_apply takes a scalar cache_pos: the JAX package's mla_apply "
+            "writes its cache with dynamic_update_slice at (0, cache_pos, 0) "
+            "(src/repro/models/attention.py:278), which takes scalar indices "
+            f"only; got positions of shape {tuple(cache_pos.shape)}")
+    positions = positions if positions is not None else torch.arange(l, device=x.device)
+
+    # queries
+    cq = rms_norm(x @ params["w_dq"].to(dt), params["q_scale"], cfg.norm_eps)
+    q = (cq @ params["w_uq"].to(dt)).reshape(b, l, hq, nope + rope)
+    q_rope = apply_rope(q[..., nope:].transpose(1, 2), positions, cfg.rope_theta)  # (B,H,L,rope)
+    q_nope = q[..., :nope].transpose(1, 2)
+
+    # compressed kv latent + shared rotary key
+    dkv = x @ params["w_dkv"].to(dt)                        # (B, L, kvr + rope)
+    c_kv = rms_norm(dkv[..., :kvr], params["kv_scale"], cfg.norm_eps)
+    k_rope_new = apply_rope(dkv[..., kvr:][:, None], positions, cfg.rope_theta)[:, 0]
+
+    new_cache = None
+    if cache is not None:
+        # dynamic_update_slice semantics: the start clamps so that the L new
+        # positions fit
+        s_max = cache.c_kv.shape[1]
+        start = min(max(int(cache_pos), 0), s_max - l)
+        cache.c_kv[:, start:start + l] = c_kv.to(cache.c_kv.dtype)
+        cache.k_rope[:, start:start + l] = k_rope_new.to(cache.k_rope.dtype)
+        new_cache = cache
+        c_kv_all, k_rope_all = cache.c_kv, cache.k_rope
+        q_offset = int(cache_pos)
+    else:
+        c_kv_all, k_rope_all = c_kv, k_rope_new
+        q_offset = 0
+    # causal: kpos <= qpos also masks the unwritten cache tail
+
+    scale = (nope + rope) ** -0.5  # scale uses the full qk dim
+    if cfg.mla_absorb:
+        # absorbed form: W_uk folds into the query and W_uv into the output,
+        # so keys and values are the latent, shared across heads
+        w_ukv = params["w_ukv"].to(dt).reshape(kvr, hq, nope + vd)
+        w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]   # (kvr, H, nope), (kvr, H, vd)
+        q_lat = torch.einsum("bhln,khn->bhlk", q_nope, w_uk)
+        q_eff = torch.cat([q_lat, q_rope], dim=-1)          # (B, H, L, kvr + rope)
+        k_eff = torch.cat([c_kv_all, k_rope_all.to(c_kv_all.dtype)],
+                          dim=-1)[:, None]                  # (B, 1, S, kvr + rope)
+        o_lat = ops.attention(q_eff, k_eff, c_kv_all[:, None], causal=True,
+                              q_offset=q_offset, scale=scale)
+        o = torch.einsum("bhlk,khv->bhlv", o_lat, w_uv)
+    else:
+        # naive form: expand the latent to per-head keys and values
+        ukv = (c_kv_all @ params["w_ukv"].to(dt)).reshape(b, -1, hq, nope + vd)
+        k_nope = ukv[..., :nope].transpose(1, 2)            # (B, H, S, nope)
+        v = ukv[..., nope:].transpose(1, 2)                 # (B, H, S, vd)
+        k_rope_b = k_rope_all[:, None].expand(b, hq, k_rope_all.shape[1], rope)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_nope, k_rope_b], dim=-1)
+        o = ops.attention(q_full, k_full, v, causal=True, q_offset=q_offset,
+                          scale=scale)
+    out = o.transpose(1, 2).reshape(b, l, hq * vd) @ params["wo"].to(dt)
+    return out, new_cache
+
+
+__all__ = ["KVCache", "MLACache", "gqa_apply", "gqa_cache_init", "gqa_init",
+           "mla_apply", "mla_cache_init", "mla_init"]

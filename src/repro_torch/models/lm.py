@@ -1,5 +1,6 @@
 """Decoder-only LM: init / forward / prefill / decode (port of
-`repro.models.lm`, for models built of "full" and "swa" blocks).
+`repro.models.lm`, for models built of "full", "swa", "mla" and "full_moe"
+blocks).
 
 Params are the JAX package's tree as plain dicts of tensors: "embed",
 "final_scale", "segments" (a list of {"b{i}": block} dicts whose leaves
@@ -87,9 +88,10 @@ def params_from_numpy(tree, device) -> Any:
 
 
 #: the params that are matrices, by key: the embedding, the LM head and
-#: every projection. The norm scales stay in the param dtype.
+#: every projection (MLA's down- and up-projections, the MoE router and
+#: expert matrices among them). The norm scales stay in the param dtype.
 MATRICES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "w_in",
-                      "w_out"})
+                      "w_out", "w_dq", "w_uq", "w_dkv", "w_ukv", "router"})
 
 
 def compute_params(cfg: ModelConfig, params) -> Any:
@@ -113,7 +115,8 @@ def compute_params(cfg: ModelConfig, params) -> Any:
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
-    """Returns (hidden (B, L, d), aux loss)."""
+    """Returns (hidden (B, L, d), aux loss: the MoE blocks' load-balance
+    losses summed, an f32 0 for a dense model)."""
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     positions = torch.arange(tokens.shape[1], device=x.device)

@@ -1,5 +1,6 @@
 """Segment stack machinery: block dispatch + a loop over layers (port of
-`repro.models.stack`, for the block kinds "full" and "swa").
+`repro.models.stack`, for the block kinds "full", "swa", "mla" and
+"full_moe").
 
 A model is a sequence of segments ((block_types, repeat), ...). Parameters
 for a segment are stacked along a leading `repeat` axis, as in the JAX
@@ -13,11 +14,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import gqa_apply, gqa_cache_init, gqa_init
+from repro_torch.models.attention import (gqa_apply, gqa_cache_init, gqa_init,
+                                          mla_apply, mla_cache_init, mla_init)
 from repro_torch.models.layers import rms_norm, swiglu_apply, swiglu_init
+from repro_torch.models.moe import moe_apply, moe_init
 
 #: block kinds the port builds; the others raise, naming the ROADMAP item
-PORTED_KINDS = ("full", "swa")
+PORTED_KINDS = ("full", "swa", "mla", "full_moe")
 
 
 def check_ported(kind: str) -> None:
@@ -42,30 +45,48 @@ def block_init(gen: torch.Generator, cfg, kind: str, dtype, lead=()):
     check_ported(kind)
     d = cfg.d_model
     zeros = lambda: torch.zeros(tuple(lead) + (d,), dtype=dtype, device=gen.device)
-    return {"ln1": zeros(), "attn": gqa_init(gen, cfg, dtype, lead),
-            "ln2": zeros(), "mlp": swiglu_init(gen, d, cfg.d_ff, dtype, lead)}
+    attn = (mla_init if kind == "mla" else gqa_init)(gen, cfg, dtype, lead)
+    p = {"ln1": zeros(), "attn": attn, "ln2": zeros()}
+    if kind == "full_moe":
+        p["moe"] = moe_init(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = swiglu_init(gen, d, cfg.d_ff, dtype, lead)
+    return p
 
 
 # ----------------------------------------------------------------- block apply
 def block_apply(params, cfg, kind: str, x, *, positions, cache=None,
                 cache_pos=None):
-    """Returns (x, aux_loss, new_cache); the dense kinds add no auxiliary
-    loss (aux is 0.0)."""
+    """Returns (x, aux_loss, new_cache); only "full_moe" adds an auxiliary
+    loss, and only with no cache (forward): prefill and decode read none,
+    so it is not computed there (the others' aux is 0.0)."""
     check_ported(kind)
-    window = cfg.window if kind == "swa" else 0
+    aux = 0.0
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    o, new_cache = gqa_apply(params["attn"], cfg, h, window=window,
-                             positions=positions, cache=cache,
-                             cache_pos=cache_pos, causal=True)
+    if kind == "mla":
+        o, new_cache = mla_apply(params["attn"], cfg, h, positions=positions,
+                                 cache=cache, cache_pos=cache_pos)
+    else:
+        window = cfg.window if kind == "swa" else 0
+        o, new_cache = gqa_apply(params["attn"], cfg, h, window=window,
+                                 positions=positions, cache=cache,
+                                 cache_pos=cache_pos, causal=True)
     x = x + o
-    x = x + swiglu_apply(params["mlp"], rms_norm(x, params["ln2"], cfg.norm_eps))
-    return x, 0.0, new_cache
+    h = rms_norm(x, params["ln2"], cfg.norm_eps)
+    if kind == "full_moe":
+        o, a = moe_apply(params["moe"], cfg, h, aux=cache is None)
+        aux = aux if a is None else a
+    else:
+        o = swiglu_apply(params["mlp"], h)
+    return x + o, aux, new_cache
 
 
 # ----------------------------------------------------------------- block cache
 def block_cache_init(cfg, kind: str, batch: int, max_seq: int, dtype,
                      device=None, lead=()):
     check_ported(kind)
+    if kind == "mla":
+        return mla_cache_init(cfg, batch, max_seq, dtype, device, lead)
     window = cfg.window if kind == "swa" else 0
     return gqa_cache_init(cfg, batch, max_seq, window, dtype, device, lead)
 
@@ -87,31 +108,40 @@ def stack_cache_init(cfg, segments, batch: int, max_seq: int, dtype,
 
 # -------------------------------------------------------------- forward passes
 def _run(seg_params, caches, cfg, segments, x, *, positions, cache_pos):
-    """Every layer in order; caches (or None) written in place."""
+    """Every layer in order; caches (or None) written in place. Returns
+    (x, the blocks' aux losses summed in layer order: 0.0, a float, when no
+    block has one, so a dense model, a prefill and a decode launch no aux
+    work)."""
+    aux = 0.0
     for s, ((blocks, rep), params) in enumerate(zip(segments, seg_params)):
         for layer in range(rep):
             lp = _layer(params, layer)
             lc = _layer(caches[s], layer) if caches is not None else None
             for i, kind in enumerate(blocks):
-                x, _, _ = block_apply(lp[f"b{i}"], cfg, kind, x,
+                x, a, _ = block_apply(lp[f"b{i}"], cfg, kind, x,
                                       positions=positions,
                                       cache=None if lc is None else lc[f"b{i}"],
                                       cache_pos=cache_pos)
-    return x
+                if isinstance(a, torch.Tensor):
+                    aux = aux + a
+    return x, aux
 
 
 def stack_apply(seg_params, cfg, segments, x, *, positions):
-    """Forward with no cache. Returns (x, total aux loss), the loss 0 for
-    the dense kinds."""
-    x = _run(seg_params, None, cfg, segments, x, positions=positions,
-             cache_pos=None)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    """Forward with no cache. Returns (x, total aux loss: an f32 scalar),
+    summed over the blocks as the JAX package's scan sums it from 0 (0 for
+    the dense kinds)."""
+    x, aux = _run(seg_params, None, cfg, segments, x, positions=positions,
+                  cache_pos=None)
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def stack_prefill(seg_params, caches, cfg, segments, x, *, positions):
     """Prefill: forward while writing caches at positions [0, L)."""
-    x = _run(seg_params, caches, cfg, segments, x, positions=positions,
-             cache_pos=0)
+    x, _ = _run(seg_params, caches, cfg, segments, x, positions=positions,
+                cache_pos=0)
     return x, caches
 
 
@@ -122,8 +152,8 @@ def stack_decode(seg_params, caches, cfg, segments, x, pos):
         positions = pos
     else:
         positions = torch.tensor([int(pos)], device=x.device)
-    x = _run(seg_params, caches, cfg, segments, x, positions=positions,
-             cache_pos=pos)
+    x, _ = _run(seg_params, caches, cfg, segments, x, positions=positions,
+                cache_pos=pos)
     return x, caches
 
 

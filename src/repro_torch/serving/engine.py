@@ -12,7 +12,11 @@ queued request and splicing its cache rows into the same slot:
 
 Every prefill runs the flash-attention kernel once per layer (on the card);
 the per-slot decode is plain PyTorch and launches none (see
-models/attention.py). The engine keeps its own copy of the params with
+models/attention.py). MoE models ("full_moe") decode their slot batch
+through `moe_apply` as one batch of tokens, as the JAX engine does, so the
+slots' tokens (inactive slots' too) share the experts' capacity. MLA
+models are refused: the JAX engine's per-slot decode cannot run
+`mla_apply` (see `check_servable`). The engine keeps its own copy of the params with
 every matrix cast to the compute dtype once (`lm.compute_params`): the
 same numbers, without a 24 GB cast per decode step at Yi-6B.
 
@@ -49,13 +53,33 @@ class EngineState(NamedTuple):
     active: torch.Tensor   # (slots,) bool
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a model the engine cannot serve: one
+    with MLA blocks. The JAX engine decodes with per-slot positions
+    `(slots,)`, and the JAX package's `mla_apply` writes its cache with
+    `dynamic_update_slice(..., (0, cache_pos, 0))`, which takes scalar
+    indices only, so `repro.serving.engine.ServeEngine` raises a TypeError
+    on an MLA model; the port adds no feature the reference lacks. An MLA
+    model is served by `lm.prefill` and `lm.decode_step` at a scalar
+    position."""
+    lm.check_supported(cfg)
+    if any("mla" in blocks for blocks, _ in cfg.segments):
+        raise NotImplementedError(
+            f"ServeEngine does not serve {cfg.name}: its MLA blocks take a "
+            f"scalar cache position, and the engine decodes every slot at its "
+            f"own position (the JAX package's ServeEngine raises a TypeError "
+            f"here: mla_apply's dynamic_update_slice takes scalar indices). "
+            f"Use lm.prefill and lm.decode_step at a scalar position")
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, slots: int = 8, max_seq: int = 2048,
                  device=None):
         """Serves on `device` (the CUDA card when None; raises without
         one); `params` are moved there and cast once. Decoding is greedy
-        (the JAX engine's `temperature` is stored there and never read)."""
-        lm.check_supported(cfg)
+        (the JAX engine's `temperature` is stored there and never read).
+        Raises NotImplementedError for an MLA model (`check_servable`)."""
+        check_servable(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = lm.compute_params(
@@ -140,4 +164,4 @@ class ServeEngine:
         return self.slots_table.stats()
 
 
-__all__ = ["EngineState", "Request", "ServeEngine"]
+__all__ = ["EngineState", "Request", "ServeEngine", "check_servable"]

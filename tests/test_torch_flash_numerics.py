@@ -43,15 +43,18 @@ KQ, KB = 64, 64          # query rows a block, keys a tile: csrc/flash.cu
 NEG = -1e30              # the kernels' masked score
 BF16_ULPS, BF16_FLOOR, BF16_BITS_SHARE = 2, 1e-4, 0.01   # chip_smoke.py
 
-#: (case, Hq, Hkv, Lq, Lk, D, causal, window, q_offset)
+#: (case, Hq, Hkv, Lq, Lk, D, Dv, causal, window, q_offset)
 CASES = (
-    ("D 128, GQA 8, prompt over a cache", 8, 1, 128, 256, 128, True, 0, 0),
-    ("D 80, GQA 4, prompt over a cache", 8, 2, 96, 160, 80, True, 0, 0),
-    ("ragged Lq", 8, 1, 37, 300, 128, True, 0, 0),
-    ("q_offset", 8, 2, 50, 300, 80, True, 0, 200),
-    ("window", 8, 2, 192, 192, 80, True, 64, 0),
-    ("Lq = 1, decode", 8, 1, 1, 300, 128, True, 0, 250),
-    ("non-causal", 8, 2, 64, 100, 128, False, 0, 0),
+    ("D 128, GQA 8, prompt over a cache", 8, 1, 128, 256, 128, 128, True, 0, 0),
+    ("D 80, GQA 4, prompt over a cache", 8, 2, 96, 160, 80, 80, True, 0, 0),
+    ("ragged Lq", 8, 1, 37, 300, 128, 128, True, 0, 0),
+    ("q_offset", 8, 2, 50, 300, 80, 80, True, 0, 200),
+    ("window", 8, 2, 192, 192, 80, 80, True, 64, 0),
+    ("Lq = 1, decode", 8, 1, 1, 300, 128, 128, True, 0, 250),
+    ("non-causal", 8, 2, 64, 100, 128, 128, False, 0, 0),
+    # MLA's naive form (MiniCPM3-4B): q and k of 96, v of 64, no GQA
+    ("MLA D 96 Dv 64, prompt over a cache", 8, 8, 128, 256, 96, 64, True, 0, 0),
+    ("MLA D 96 Dv 64, decode", 8, 8, 1, 300, 96, 64, True, 0, 250),
 )
 
 
@@ -60,15 +63,16 @@ def emulate(q, k, v, *, causal, window, q_offset, split=True):
     the 64-key tiles from k_first up to the last key a row of the tile can
     see (the kernel's tile skip), f32 scores from bf16 q and k in base 2,
     the online softmax (masked p exactly 0), P·V with P in two bf16 terms
-    (`split`) or one, f32 accumulation, bf16 output."""
+    (`split`) or one, f32 accumulation, bf16 output (v's head dim)."""
     b, hq, lq, d = q.shape
+    dv = v.shape[-1]
     group = hq // k.shape[1]
     lk = k.shape[2]
     scale2 = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
         1.4426950408889634, dtype=torch.float32)
     kr = k.float().repeat_interleave(group, 1)
     vr = v.float().repeat_interleave(group, 1)
-    out = torch.empty((b, hq, lq, d), dtype=torch.bfloat16)
+    out = torch.empty((b, hq, lq, dv), dtype=torch.bfloat16)
     for q0 in range(0, lq, KQ):
         qt = q[:, :, q0:q0 + KQ].float()
         rows = qt.shape[2]
@@ -80,7 +84,7 @@ def emulate(q, k, v, *, causal, window, q_offset, split=True):
             k_lo = max(0, q_offset + q0 - window + 1)
         m = torch.full((b, hq, rows, 1), NEG)
         l = torch.zeros((b, hq, rows, 1))
-        acc = torch.zeros((b, hq, rows, d))
+        acc = torch.zeros((b, hq, rows, dv))
         for k0 in range(k_lo // KB * KB, k_hi, KB):
             kt, vt = kr[:, :, k0:k0 + KB], vr[:, :, k0:k0 + KB]
             kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
@@ -106,11 +110,11 @@ def emulate(q, k, v, *, causal, window, q_offset, split=True):
 
 
 def inputs(case, seed):
-    _, hq, hkv, lq, lk, d, *_ = case
+    _, hq, hkv, lq, lk, d, dv, *_ = case
     rng = np.random.default_rng(seed)
-    mk = lambda h, n: torch.from_numpy(
-        rng.standard_normal((1, h, n, d), np.float32)).bfloat16()
-    return mk(hq, lq), mk(hkv, lk), mk(hkv, lk)
+    mk = lambda h, n, w: torch.from_numpy(
+        rng.standard_normal((1, h, n, w), np.float32)).bfloat16()
+    return mk(hq, lq, d), mk(hkv, lk, d), mk(hkv, lk, dv)
 
 
 def against_ref(case, seed, split):

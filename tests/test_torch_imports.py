@@ -47,7 +47,7 @@ for mod in ("envs.grid.snake", "envs.puzzle", "envs.multitask", "models.lm",
             "rl.ppo", "train.fused", "sustainability.impact",
             "pool.async_pool", "pool.sharded", "runtime.failures",
             "runtime.elastic", "runtime.supervisor", "checkpoint.manager",
-            "serving.env_service"):
+            "serving.env_service", "models.moe"):
     assert "repro_torch." + mod in names, mod
 """
 
