@@ -2892,6 +2892,9 @@ def phase_pixel_split(torch, device, env_id, pool, sync, numbers, bw, flops):
 YI_HEADS, DANUBE_HEADS = (32, 4, 128, 128), (32, 8, 80, 80)
 MINICPM3_HEADS = (40, 40, 96, 64)
 OLMOE_HEADS, GRANITE_HEADS = (16, 16, 128, 128), (16, 8, 64, 64)
+#: zamba2-2.7B's shared attention (32/32 heads of 80); whisper-base's
+#: encoder, decoder self- and cross-attention (8/8 heads of 64)
+ZAMBA2_HEADS, WHISPER_HEADS = (32, 32, 80, 80), (8, 8, 64, 64)
 #: the JAX package's attention tolerances (tests/test_kernels.py):
 #: test_flash_attention_sweep (f32) and test_flash_attention_bf16
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 5e-2}
@@ -2909,9 +2912,13 @@ BF16_ULPS, BF16_FLOOR, BF16_BITS_SHARE = 2, 1e-4, 0.01
 #: bound (and SDPA where it computes the same function), else None: "lm"
 #: (a 2,048-token prompt prefilled against Yi-6B's 4,096-slot cache: the
 #: kernels line's shape), "window" (Danube's), "mla" (MiniCPM3-4B's
-#: prefill: the kernels line's minicpm3_heads). The MoE paths' heads,
-#: OLMoE-1B-7B's (16, 16, 128) and Granite-MoE's (16, 8, 64), are checked
-#: at a prefill, a ragged prompt and a decode
+#: prefill: the kernels line's minicpm3_heads), "whisper" (whisper-base's
+#: encoder over 1,500 frames, batch 4, non-causal: the kernels line's
+#: whisper_heads). The MoE paths' heads, OLMoE-1B-7B's (16, 16, 128) and
+#: Granite-MoE's (16, 8, 64), are checked at a prefill, a ragged prompt and
+#: a decode; zamba2's at a prefill and a decode; Whisper's decoder at its
+#: prompt and decode steps over the 1,500 frames (cross) and its
+#: WHISPER_MAX_SEQ cache (self)
 ATTN_CASES = (
     ("causal over a full cache", YI_HEADS, 1, 2048, 4096, True, 0, 0, "lm"),
     ("causal over a full cache", DANUBE_HEADS, 1, 2048, 4096, True, 0, 0, None),
@@ -2932,6 +2939,12 @@ ATTN_CASES = (
     ("causal over a full cache", GRANITE_HEADS, 1, 2048, 4096, True, 0, 0, None),
     ("ragged prompt", GRANITE_HEADS, 1, 37, 4096, True, 0, 0, None),
     ("decode", GRANITE_HEADS, 1, 1, 4096, True, 0, 3000, None),
+    ("causal over a full cache", ZAMBA2_HEADS, 1, 2048, 4096, True, 0, 0, None),
+    ("decode", ZAMBA2_HEADS, 1, 1, 4096, True, 0, 3000, None),
+    ("encoder, non-causal", WHISPER_HEADS, 4, 1500, 1500, False, 0, 0, "whisper"),
+    ("cross attention, prompt", WHISPER_HEADS, 4, 64, 1500, False, 0, 0, None),
+    ("cross attention, decode", WHISPER_HEADS, 4, 1, 1500, False, 0, 0, None),
+    ("decode", WHISPER_HEADS, 4, 1, 448, True, 0, 100, None),
 )
 #: the serving run: Yi-6B at full width and depth through ServeEngine
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 64
@@ -2955,6 +2968,8 @@ F32_LOGIT_TOL, BF16_LOGIT_REL = 2e-3, 5e-2
 DANUBE_LAYERS, DANUBE_PROMPT, DANUBE_DECODES = 4, 4608, 16
 #: decode ticks in the profiled window
 PROFILE_TICKS = 5
+#: a prime prompt length of lm_prompts (seed 0): the GLA scan takes chunk 1
+PRIME_PROMPT = 1109
 #: MiniCPM3-4B at full width and depth (MLA, its naive form): prompts of
 #: 2,048 tokens prefilled into a SERVE_MAX_SEQ cache, then greedy
 #: decode steps at a scalar position (the engine cannot serve MLA:
@@ -3031,8 +3046,8 @@ def attention_check(torch, q, k, v, what, **kw):
 def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
     """The CUDA flash attention against attention_ref at the LM paths'
     shapes; kernel, plain and SDPA times and the bound at the timed cases
-    (the window's in bf16 only). Returns (worst error, the bf16 cases timed
-    as "lm" and as "mla")."""
+    (the window's in bf16 only). Returns (worst error, {timed name: its
+    bf16 case})."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import attention_ref, flash_attention_cuda
@@ -3067,11 +3082,11 @@ def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
                             q, k, v, **kw), 20),
                         plain_ms=event_ms(torch, lambda: attention_ref(
                             q, k, v, **kw), 3, warmup=1))
-                    if causal and q_offset == 0 and not window:
+                    if q_offset == 0 and not window:
                         # is_causal is top-left aligned: key j <= row i, the
                         # same mask as q_offset 0
                         sdpa = lambda: F.scaled_dot_product_attention(
-                            q, k, v, is_causal=True, enable_gqa=True)
+                            q, k, v, is_causal=causal, enable_gqa=True)
                         case["library"] = ("torch.nn.functional."
                                            "scaled_dot_product_attention")
                         case["library_ms"] = event_ms(torch, sdpa, 20)
@@ -3088,7 +3103,7 @@ def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
           "launches, plain over 3", "rates": {"bytes_per_s": bw,
                                               "bf16_flops": bf16_flops,
                                               "fp32_flops": fp32_flops}})
-    return worst, timed_bf16["lm"], timed_bf16["mla"]
+    return worst, timed_bf16
 
 
 @contextlib.contextmanager
@@ -3116,15 +3131,24 @@ def captured_attention(layers, backend="auto"):
         ops.attention = original
 
 
-def real_layer_checks(torch, lm, cfg, params, toks):
+def real_layer_checks(torch, lm, cfg, params, toks, calls=None, frames=None,
+                      max_seq=SERVE_MAX_SEQ):
     """The kernel against the plain version on the real q, k and v of the
-    first and last layers of one prefill of `toks` into a SERVE_MAX_SEQ
-    cache. Returns {"<arch> layer <i>": shapes, kwargs and errors}."""
-    with captured_attention({0, cfg.num_layers - 1}) as seen:
-        lm.prefill(cfg, params, {"tokens": toks}, SERVE_MAX_SEQ)
+    attention calls `calls` ({call number: name}; the first and last layers
+    when None) of one prefill of `toks` (with Whisper's `frames`) into a
+    `max_seq` cache. Returns {"<arch> <name>": shapes, kwargs and errors}."""
+    calls = calls or {0: "layer 0", cfg.num_layers - 1:
+                      f"layer {cfg.num_layers - 1}"}
+    batch = {"tokens": toks} if frames is None else {"tokens": toks,
+                                                      "frames": frames}
+    with captured_attention(set(calls)) as seen:
+        lm.prefill(cfg, params, batch, max_seq)
+    if set(seen) != set(calls):
+        raise AssertionError(f"{cfg.name}: attention calls {sorted(seen)} "
+                             f"captured, want {sorted(calls)}")
     real = {}
     for layer, (q, k, v, kw) in sorted(seen.items()):
-        what = f"{cfg.name} layer {layer}"
+        what = f"{cfg.name} {calls[layer]}"
         real[what] = {"q": list(q.shape), "k": list(k.shape),
                       "v": list(v.shape), **kw,
                       **attention_check(torch, q, k, v, what, **kw)}
@@ -3173,14 +3197,16 @@ def profile_window(torch, fn, n, ranges=()):
     return out
 
 
-def decode_vs_forward(lm, cfg, params, toks, backend):
+def decode_vs_forward(lm, cfg, params, toks, backend, frames=None):
     """(decode_step logits at L after prefill(L), forward(L + 1)'s last
-    logits), every attention routed to `backend`."""
+    logits), every attention routed to `backend`; an encoder-decoder
+    model's batches carry `frames`."""
     l = toks.shape[1] - 1
+    extra = {} if frames is None else {"frames": frames}
     with captured_attention(set(), backend):
-        hidden, _ = lm.forward(cfg, params, {"tokens": toks})
+        hidden, _ = lm.forward(cfg, params, {"tokens": toks, **extra})
         ref = lm.logits_for(cfg, params, hidden[:, -1:])[:, 0]
-        _, caches = lm.prefill(cfg, params, {"tokens": toks[:, :l]},
+        _, caches = lm.prefill(cfg, params, {"tokens": toks[:, :l], **extra},
                                SERVE_MAX_SEQ)
         got, _ = lm.decode_step(cfg, params, caches, toks[:, l:], l)
     return got, ref
@@ -3229,12 +3255,46 @@ def serve_requests(torch, engine, prompts):
     return reqs, time.perf_counter() - t0, first, ticks
 
 
+@contextlib.contextmanager
+def timed_prefills(lm):
+    """Record (prompt length, seconds) of every `lm.prefill` call inside
+    the block, each between two synchronizes (the engine's admit ends each
+    in a host copy of its token anyway)."""
+    import torch
+
+    original, seen = lm.prefill, []
+
+    def spy(cfg, params, batch, max_seq):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(cfg, params, batch, max_seq)
+        torch.cuda.synchronize()
+        seen.append((int(batch["tokens"].shape[1]), time.perf_counter() - t0))
+        return out
+
+    lm.prefill = spy
+    try:
+        yield seen
+    finally:
+        lm.prefill = original
+
+
+def attention_sites(cfg):
+    """The GQA attention calls of one prefill: every block but the
+    recurrent ones."""
+    from repro_torch.models.stack import SSM_KINDS
+
+    return sum(rep * sum(kind not in SSM_KINDS for kind in blocks)
+               for blocks, rep in cfg.segments)
+
+
 def serve_cell(torch, lm, engine, prompts):
     """The serving path of one model: a warm-up prefill and decode
     (uncounted), then every prompt through `serve_requests` with the launch
     counts set to 0 just before and read just after (one flash launch per
-    layer per prefill). Returns its numbers; raises on other counts or a
-    request without its tokens."""
+    attention layer per prefill). Returns its numbers, each prefill's
+    seconds among them; raises on other counts or a request without its
+    tokens."""
     cfg, device = engine.cfg, engine.device
     eparams = engine.params
     with uncounted():  # warm cuBLAS and the kernel's library
@@ -3248,10 +3308,11 @@ def serve_cell(torch, lm, engine, prompts):
     torch.cuda.reset_peak_memory_stats()
 
     reset_counts()
-    reqs, seconds, first, ticks = serve_requests(torch, engine, prompts)
+    with timed_prefills(lm) as prefills:
+        reqs, seconds, first, ticks = serve_requests(torch, engine, prompts)
     launches = read_counts()
     want = {"megastep": 0, "raster": 0,
-            "flash": len(prompts) * cfg.num_layers}
+            "flash": len(prompts) * attention_sites(cfg)}
     if launches != want:
         raise AssertionError(f"{cfg.name} serving: launches {launches}, "
                              f"want {want}")
@@ -3274,27 +3335,33 @@ def serve_cell(torch, lm, engine, prompts):
         "ticks": len(ticks), "decode_tick_ms_median":
             1e3 * statistics.median(decode_ticks) if decode_ticks else None,
         "admit_ticks_s": sum(s for s, n in ticks if n),
+        "prefill_s": [{"L": n, "s": sec} for n, sec in prefills],
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "stats": engine.stats(),
         "clock": "host clock; each tick ends in the tokens' host copy, so "
                  "a first token is stamped at the end of its tick"}
 
 
-def check_decode_vs_forward(torch, lm, cfg, eparams, toks):
+def check_decode_vs_forward(torch, lm, cfg, eparams, toks, frames=None,
+                            bf16_ungated=None):
     """tests/test_models.py::test_decode_matches_forward through the
     kernel: prefill(L) + decode_step(L) against forward(L + 1) on `toks`
     (1, L + 1), in the compute dtype (bf16) through the kernel and the plain
     attention, and in f32 (params upcast from `eparams`) through the
     kernel. Emits and returns the errors; raises past F32_LOGIT_TOL in f32
     or BF16_LOGIT_REL in bf16 (the kernel's, and the kernel's decode
-    against the plain one's)."""
+    against the plain one's). With `bf16_ungated` (the reason) the bf16
+    decode against forward is reported, not gated."""
     import dataclasses
 
-    logits = {"bfloat16 kernel": decode_vs_forward(lm, cfg, eparams, toks, "auto"),
-              "bfloat16 plain": decode_vs_forward(lm, cfg, eparams, toks, "torch")}
+    logits = {"bfloat16 kernel": decode_vs_forward(lm, cfg, eparams, toks,
+                                                   "auto", frames),
+              "bfloat16 plain": decode_vs_forward(lm, cfg, eparams, toks,
+                                                  "torch", frames)}
     p32 = lm.tree_map(lambda x: x.float(), eparams)
     logits["float32 kernel"] = decode_vs_forward(
-        lm, dataclasses.replace(cfg, dtype="float32"), p32, toks, "auto")
+        lm, dataclasses.replace(cfg, dtype="float32"), p32, toks, "auto",
+        frames)
     del p32
     inv = {what: logit_errors(*pair) for what, pair in logits.items()}
     inv["bfloat16 kernel against plain, decode"] = logit_errors(
@@ -3303,12 +3370,17 @@ def check_decode_vs_forward(torch, lm, cfg, eparams, toks):
            "bf16_rel_l2_tol": BF16_LOGIT_REL,
            "max_abs_logit": float(logits["bfloat16 kernel"][1].abs().max()),
            **inv}
+    if bf16_ungated:
+        out["bfloat16 kernel"]["gated"] = False
+        out["bfloat16 ungated, why"] = bf16_ungated
     emit({"check": "decode_matches_forward", **out})
     got, ref = logits["float32 kernel"]
     torch.testing.assert_close(
         got, ref, rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL,
         msg=lambda m: f"{cfg.name} f32 decode != forward: {m}")
-    for what in ("bfloat16 kernel", "bfloat16 kernel against plain, decode"):
+    gated = ["bfloat16 kernel against plain, decode"]
+    gated += [] if bf16_ungated else ["bfloat16 kernel"]
+    for what in gated:
         if not inv[what]["rel_l2"] <= BF16_LOGIT_REL:
             raise AssertionError(f"{cfg.name} decode != forward ({what}): "
                                  f"{inv[what]}")
@@ -3717,12 +3789,287 @@ def phase_moe(torch, device):
     return max(c["max_abs_err"] for c in real.values()), out
 
 
+#: the recurrent families, each at full width and depth through
+#: ServeEngine at phase lm's settings and requests
+SSM_ARCHS = ("zamba2-2.7b", "xlstm-350m")
+#: xLSTM-350M's bf16 decode against forward is reported, not gated: with
+#: random weights its 24 blocks carry bf16's rounding far (its bf16
+#: forward is 0.54 of the logits' norm from its f32 forward, in the JAX
+#: package as in the port, CPU, 64 tokens), and the JAX package's own bf16
+#: decode is 0.20 of the norm from its forward there. f32 is gated.
+BF16_UNGATED = {"xlstm-350m": "bf16 rounding, amplified over 24 random-weight "
+                "blocks: the JAX package's own bf16 decode is 0.20 of the "
+                "norm from its forward (CPU, 64 tokens); f32 gated"}
+#: whisper-base at full width and depth: WHISPER_BATCH requests of 1,500
+#: frames (the config's encoder_len) and a WHISPER_PROMPT-token decoder
+#: prompt, prefilled into a WHISPER_MAX_SEQ self-attention cache (Whisper's
+#: decoder context), then WHISPER_DECODES greedy steps at a scalar position
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODES, WHISPER_MAX_SEQ = 4, 64, 64, 448
+
+
+def clone_tree(tree):
+    """A copy of a cache tree (lists, dicts, NamedTuples of tensors)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
+    if isinstance(tree, tuple):
+        return type(tree)(*(clone_tree(v) for v in tree))
+    return tree.clone()
+
+
+def scalar_vs_per_slot(torch, lm, cfg, eparams, toks):
+    """phase lm's danube check on a recurrent model: one prefill of `toks`
+    (1, L), then decode_step from two copies of its caches, at the scalar
+    position L and at the per-slot position [L]. The recurrent blocks
+    ignore positions: with no attention block the two are equal bit for
+    bit; zamba2's shared-attention sites attend per slot through the plain
+    f32 einsum and at a scalar position through the kernel, gated at
+    BF16_LOGIT_REL of the logits' norm. Returns the errors."""
+    l = toks.shape[1]
+    logits, caches = lm.prefill(cfg, eparams, {"tokens": toks}, SERVE_MAX_SEQ)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    scalar, _ = lm.decode_step(cfg, eparams, clone_tree(caches), tok, l)
+    pos = torch.tensor([l], dtype=torch.int32, device=toks.device)
+    per_slot, _ = lm.decode_step(cfg, eparams, caches, tok, pos)
+    out = {"L": l, **logit_errors(per_slot, scalar),
+           "exact": bool(torch.equal(per_slot, scalar))}
+    if attention_sites(cfg) == 0 and not out["exact"]:
+        raise AssertionError(f"{cfg.name}: per-slot decode != scalar: {out}")
+    if not out["rel_l2"] <= BF16_LOGIT_REL:
+        raise AssertionError(f"{cfg.name}: per-slot decode != scalar: {out}")
+    return out
+
+
+def phase_ssm(torch, device):
+    """zamba2-2.7B and xLSTM-350M at full width and depth (random params
+    from a seed) through ServeEngine(slots=8, max_seq=4096): the requests of
+    phase lm, with the launch counts set to 0 just before run and read just
+    after (one flash launch per shared-attention site per prefill: 6 for
+    zamba2, none for xLSTM), each prefill's seconds beside its GLA chunk;
+    then decode against forward (check_decode_vs_forward; BF16_UNGATED),
+    scalar against per-slot decode, and for zamba2 the kernel on the real
+    q, k and v of its first and last shared-attention sites. Returns (the
+    real layers' worst error, the phase's numbers)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.gla import chunk_size
+    from repro_torch.serving.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    out, real = {"phase": "ssm"}, {}
+    for arch in SSM_ARCHS:
+        t1 = time.perf_counter()
+        cfg = get_config(arch)
+        params = lm.init_params(
+            cfg, torch.Generator(device=device).manual_seed(LM_SEED), device)
+        cell = {"blocks": cfg.num_layers,
+                "params": sum(x.numel() for x in lm.tree_leaves(params))}
+        engine = ServeEngine(cfg, params, slots=SERVE_SLOTS,
+                             max_seq=SERVE_MAX_SEQ, device=device)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        cell["init_s"] = time.perf_counter() - t1
+        prompts = lm_prompts(cfg.vocab_size)
+        cell["serve"] = serve = serve_cell(torch, lm, engine, prompts)
+        for row in serve["prefill_s"]:
+            row["chunk"] = chunk_size(row["L"], cfg.ssm_chunk)
+        eparams = engine.params
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        with uncounted():
+            toks = torch.from_numpy(np.resize(prompts[1], INVARIANT_L + 1)).to(
+                device)[None].long()
+            cell["decode_matches_forward"] = check_decode_vs_forward(
+                torch, lm, cfg, eparams, toks,
+                bf16_ungated=BF16_UNGATED.get(arch))
+            cell["scalar_vs_per_slot"] = scalar_vs_per_slot(
+                torch, lm, cfg, eparams, toks[:, :INVARIANT_L])
+            sites = attention_sites(cfg)
+            if sites:
+                real.update(real_layer_checks(
+                    torch, lm, cfg, eparams,
+                    torch.from_numpy(np.resize(prompts[2], REAL_PROMPT)).to(device)[None],
+                    calls={0: "shared site 0", sites - 1: f"shared site {sites - 1}"}))
+        del eparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        cell["seconds"] = time.perf_counter() - t1
+        emit({"phase": "ssm", "arch": arch, **cell})
+        out[arch] = cell
+    out["real_layer_checks"] = real
+    out["seconds"] = time.perf_counter() - t0
+    emit({k: v for k, v in out.items() if k not in SSM_ARCHS})
+    return max(c["max_abs_err"] for c in real.values()), out
+
+
+def phase_whisper(torch, device):
+    """whisper-base at full width and depth (random params and frames from a
+    seed): the engine's refusal by name; then lm.encode of WHISPER_BATCH ×
+    1,500 frames, lm.prefill (its own encode, the cross K/V fill, the
+    WHISPER_PROMPT-token decoder prompt) and WHISPER_DECODES greedy
+    lm.decode_step calls at a scalar position, with the launch counts set to
+    0 just before the encode and gated exactly after each part: encode one
+    flash launch per encoder layer (non-causal, 1,500 × 1,500), prefill
+    that again plus one self and one cross launch per decoder layer, a step
+    one self and one cross launch per decoder layer. Then decode against
+    forward and the kernel on the real q, k and v of the encoder's first
+    layer and the first decoder layer's self and cross attention. Returns
+    (the real layers' worst error, the phase's numbers)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = get_config("whisper-base")
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = lm.init_params(cfg, gen, device)
+    out = {"phase": "whisper", "arch": cfg.name,
+           "params": sum(x.numel() for x in lm.tree_leaves(params))}
+    try:
+        ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=WHISPER_MAX_SEQ,
+                    device=device)
+    except NotImplementedError as e:
+        out["engine_refuses"] = str(e)
+    else:
+        raise AssertionError("ServeEngine accepted an encoder-decoder model")
+    eparams = lm.compute_params(cfg, params)
+    del params
+    frames = torch.randn((WHISPER_BATCH, cfg.encoder_len, cfg.d_model),
+                         generator=gen, device=device)
+    rng = np.random.default_rng(LM_SEED + 4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        WHISPER_BATCH, WHISPER_PROMPT + 1))).to(device)
+    batch = {"tokens": toks[:, :WHISPER_PROMPT], "frames": frames}
+    with uncounted():  # warm cuBLAS and the kernel's library
+        logits, caches = lm.prefill(cfg, eparams, batch, WHISPER_MAX_SEQ)
+        lm.decode_step(cfg, eparams, caches,
+                       logits[:, -1].argmax(-1).to(torch.int32)[:, None],
+                       WHISPER_PROMPT)
+        del logits, caches
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    enc_layers = sum(len(b) * rep for b, rep in cfg.encoder_segments)
+    dec_layers = cfg.num_layers
+    want = {"encode": enc_layers, "prefill": enc_layers + 2 * dec_layers,
+            "decode step": 2 * dec_layers}
+    launches = {}
+    reset_counts()
+    t1 = time.perf_counter()
+    lm.encode(cfg, eparams, frames)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches["encode"] = read_counts()["flash"]
+    logits, caches = lm.prefill(cfg, eparams, batch, WHISPER_MAX_SEQ)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches["prefill"] = read_counts()["flash"] - launches["encode"]
+    generated = [tok]
+    for step in range(WHISPER_DECODES):
+        lg, caches = lm.decode_step(cfg, eparams, caches, tok,
+                                    WHISPER_PROMPT + step)
+        tok = lg.argmax(-1).to(torch.int32)[:, None]
+        generated.append(tok)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    counts = read_counts()
+    launches["decode step"] = (counts["flash"] - launches["encode"]
+                               - launches["prefill"]) / WHISPER_DECODES
+    if launches != want or counts["megastep"] or counts["raster"]:
+        raise AssertionError(f"whisper-base: flash launches {launches}, want "
+                             f"{want}; all counts {counts}")
+    generated = torch.cat(generated, dim=1)
+    if not (bool(torch.isfinite(lg).all()) and bool(
+            ((generated >= 0) & (generated < cfg.vocab_size)).all())):
+        raise AssertionError("whisper-base: non-finite logits or tokens out "
+                             "of the vocabulary")
+    out["run"] = {
+        "batch": WHISPER_BATCH, "frames": cfg.encoder_len,
+        "prompt": WHISPER_PROMPT, "max_seq": WHISPER_MAX_SEQ,
+        "decode_steps": WHISPER_DECODES, "encode_s": t2 - t1,
+        "prefill_s": t3 - t2, "decode_step_ms": 1e3 * (t4 - t3) / WHISPER_DECODES,
+        "decode_tokens_per_s": WHISPER_BATCH * WHISPER_DECODES / (t4 - t3),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "launches_total": counts["flash"],
+        "clock": "host clock; encode, prefill and the decode steps each end "
+                 "in a synchronize"}
+    del logits, lg, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with uncounted():
+        out["decode_matches_forward"] = check_decode_vs_forward(
+            torch, lm, cfg, eparams, toks[:1].long(), frames=frames[:1])
+        real = real_layer_checks(
+            torch, lm, cfg, eparams, batch["tokens"], frames=frames,
+            max_seq=WHISPER_MAX_SEQ,
+            calls={0: "encoder layer 0", enc_layers: "decoder layer 0 self",
+                   enc_layers + 1: "decoder layer 0 cross",
+                   enc_layers + 2 * dec_layers - 1:
+                       f"decoder layer {dec_layers - 1} cross"})
+    out["real_layer_checks"] = real
+    del eparams, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return max(c["max_abs_err"] for c in real.values()), out
+
+
+def phase_ssm_profile(torch, device):
+    """Where a recurrent prefill's time goes, not run by main(): profiler
+    windows over one prefill of zamba2-2.7B and of xLSTM-350M at 2,048
+    tokens (GLA chunk 256) and at PRIME_PROMPT (chunk 1). A window of ~0.2 M
+    launches takes minutes of the profiler's own processing."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    t0, out = time.perf_counter(), {}
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        params = lm.compute_params(cfg, lm.init_params(
+            cfg, torch.Generator(device=device).manual_seed(LM_SEED), device))
+        gc.collect()
+        prompt = lm_prompts(cfg.vocab_size)[2]
+        with uncounted():
+            for n in (REAL_PROMPT, PRIME_PROMPT):
+                toks = torch.from_numpy(np.resize(prompt, n)).to(device)[None]
+                out[f"{arch}_prefill_{n}"] = profile_window(
+                    torch, lambda: lm.prefill(cfg, params, {"tokens": toks},
+                                              SERVE_MAX_SEQ), 1)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "ssm_profile", "seconds": time.perf_counter() - t0, **out})
+    return out
+
+
 def phase_lm_profile(torch, device):
     """Where the serving runs' time goes: on a fresh Yi-6B engine, a
     profiler window over decode ticks (every slot decodes whether active or
     not, so the zeroed caches cost what full ones do) and over one
-    2,048-token prefill; the same on a fresh OLMoE-1B-7B engine; and
-    MiniCPM3-4B's decode steps after phase mla's 4 × 2,048-token prefill.
+    2,048-token prefill; the same on a fresh OLMoE-1B-7B engine;
+    MiniCPM3-4B's decode steps after phase mla's 4 × 2,048-token prefill;
+    on fresh zamba2-2.7B and xLSTM-350M engines their ticks; Whisper's
+    decode steps after phase whisper's prefill.
     Last of the phases: a profiler leaves the CUDA launches of the process
     slower after it stops."""
     import gc
@@ -3783,6 +4130,39 @@ def phase_lm_profile(torch, device):
     del params, caches, logits
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the recurrent models' ticks (their prefills: phase_ssm_profile)
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        engine = ServeEngine(cfg, lm.init_params(
+            cfg, torch.Generator(device=device).manual_seed(LM_SEED), device),
+            slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device)
+        gc.collect()
+        with uncounted():
+            out[f"{arch}_decode_tick"] = profile_window(
+                torch, lambda: engine._decode(engine.params, engine.state),
+                PROFILE_TICKS)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = get_config("whisper-base")
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = lm.compute_params(cfg, lm.init_params(cfg, gen, device))
+    frames = torch.randn((WHISPER_BATCH, cfg.encoder_len, cfg.d_model),
+                         generator=gen, device=device)
+    toks = torch.from_numpy(np.random.default_rng(LM_SEED + 4).integers(
+        0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT))).to(device)
+    with uncounted():
+        logits, caches = lm.prefill(cfg, params, {"tokens": toks, "frames": frames},
+                                    WHISPER_MAX_SEQ)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        out["whisper_decode_step"] = profile_window(
+            torch, lambda: lm.decode_step(cfg, params, caches, tok,
+                                          WHISPER_PROMPT), PROFILE_TICKS)
+    del params, caches, logits, frames
+    gc.collect()
+    torch.cuda.empty_cache()
     emit({"phase": "lm_profile", "seconds": time.perf_counter() - t0, **out})
     return out
 
@@ -3804,15 +4184,21 @@ def main() -> int:
     name, smi = phase_device(torch)
     bw, flops, bf16_flops = card_row(name)
     phase_build()
-    flash_err, flash, flash_mla = phase_attention(torch, device, bw, flops,
-                                                  bf16_flops)
+    flash_err, timed_flash = phase_attention(torch, device, bw, flops,
+                                             bf16_flops)
+    flash = timed_flash["lm"]
     lm_err, lm_out = phase_lm(torch, device)
     mla_err, mla_out = phase_mla(torch, device)
     moe_err, moe_out = phase_moe(torch, device)
-    flash_err = max(flash_err, lm_err, mla_err, moe_err)
+    ssm_err, ssm_out = phase_ssm(torch, device)
+    whisper_err, whisper_out = phase_whisper(torch, device)
+    flash_err = max(flash_err, lm_err, mla_err, moe_err, ssm_err, whisper_err)
     flash_paths = {"lm": lm_out["serve"]["launches"]["flash"],
                    "mla": mla_out["run"]["launches"]["flash"],
-                   "moe": moe_out["serve"]["launches"]["flash"]}
+                   "moe": moe_out["serve"]["launches"]["flash"],
+                   "ssm": sum(ssm_out[a]["serve"]["launches"]["flash"]
+                              for a in SSM_ARCHS),
+                   "whisper": whisper_out["run"]["launches_total"]}
     mega_err = phase_kernel(torch, device)
     raster_err, grid_raster = phase_raster(torch, device, bw, flops)
     pools, vmap_pools, render_pools, launches = phase_main(torch, device, sync)
@@ -3846,6 +4232,10 @@ def main() -> int:
 
     cartpole = bodies["CartPole"]
     pong = pixel["Pong-v0"]
+    heads_row = lambda case: {k: case[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+        "max_abs_err", "case", "dtype", "heads", "B", "Lq", "Lk", "causal",
+        "live_pairs", "bytes", "flops")}
     emit({"kernels": [{
         "name": "megastep",
         "route": "cuda",
@@ -3924,10 +4314,8 @@ def main() -> int:
         "shape": {k: flash[k] for k in ("case", "dtype", "heads", "B", "Lq",
                                         "Lk", "causal", "live_pairs", "bytes",
                                         "flops")},
-        "minicpm3_heads": {k: flash_mla[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
-            "max_abs_err", "case", "dtype", "heads", "B", "Lq", "Lk", "causal",
-            "live_pairs", "bytes", "flops")},
+        "minicpm3_heads": heads_row(timed_flash["mla"]),
+        "whisper_heads": heads_row(timed_flash["whisper"]),
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

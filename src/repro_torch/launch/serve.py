@@ -5,13 +5,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --no-reduced
 
 The first serves the reduced config, the others the full ones (Yi-6B at 32
-layers, 24.2 GB of f32 params; OLMoE-1B-7B, 27.7 GB; Granite-MoE 1B-A400M);
-all run on the CUDA card, or on `--device cpu`. Params are random, drawn
-from `--seed`. An MLA arch (minicpm3-4b) is refused before its params are
+layers, 24.2 GB of f32 params; OLMoE-1B-7B, 27.7 GB; Granite-MoE 1B-A400M;
+zamba2-2.7B, 54 blocks, 8.4 GB; xLSTM-350M, 24 blocks, 1.5 GB); all run on
+the CUDA card, or on `--device cpu`. Params are random, drawn from
+`--seed`. An MLA arch (minicpm3-4b) is refused before its params are
 drawn: the engine's per-slot decode cannot run MLA (serving/engine.py::
-check_servable).
+check_servable); so is an encoder-decoder arch (whisper-base), whose
+prefill needs audio frames that a text request does not carry.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""Attention blocks: GQA (full / sliding-window) and MLA, with KV caches
-(port of `repro.models.attention`; cross attention waits, ROADMAP A13).
+"""Attention blocks: GQA (full / sliding-window), MLA and Whisper's cross
+attention, with KV caches (port of `repro.models.attention`).
 
-Attention with no cache, prefill and scalar-position decode go through
+Attention with no cache (non-causal in Whisper's encoder), prefill,
+scalar-position decode and cross attention go through
 `kernels.attention.ops.attention` (the JAX package's `_attend_chunked`): the
 hand-written CUDA kernel (csrc/flash.cu) for CUDA tensors, the plain
 `attention_ref` for CPU tensors. This is where the JAX package says the
@@ -298,5 +299,40 @@ def mla_apply(
     return out, new_cache
 
 
-__all__ = ["KVCache", "MLACache", "gqa_apply", "gqa_cache_init", "gqa_init",
-           "mla_apply", "mla_cache_init", "mla_init"]
+# -- cross attention (whisper decoder) -----------------------------------------
+def cross_init(gen: torch.Generator, cfg, dtype, lead=()):
+    """wq, wk, wv, wo; `lead` stacks them over layers."""
+    d, hq, hd = cfg.d_model, cfg.num_heads, cfg.hd
+    lead = tuple(lead)
+    return {
+        "wq": dense_init(gen, lead + (d, hq * hd), dtype, fan_in=d),
+        "wk": dense_init(gen, lead + (d, hq * hd), dtype, fan_in=d),
+        "wv": dense_init(gen, lead + (d, hq * hd), dtype, fan_in=d),
+        "wo": dense_init(gen, lead + (hq * hd, d), dtype, fan_in=hq * hd),
+    }
+
+
+def cross_kv(params, cfg, enc: torch.Tensor):
+    """The encoder's K/V (B, H, T, hd), computed once at prefill and reused
+    every decode step."""
+    b, t, d = enc.shape
+    hq, hd = cfg.num_heads, cfg.hd
+    k = (enc @ params["wk"].to(enc.dtype)).reshape(b, t, hq, hd).transpose(1, 2)
+    v = (enc @ params["wv"].to(enc.dtype)).reshape(b, t, hq, hd).transpose(1, 2)
+    return k, v
+
+
+def cross_apply(params, cfg, x: torch.Tensor,
+                kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """The decoder's L queries over the encoder's T keys, non-causal."""
+    b, l, d = x.shape
+    hq, hd = cfg.num_heads, cfg.hd
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, l, hq, hd).transpose(1, 2)
+    k, v = kv
+    o = ops.attention(q, k, v, causal=False)
+    return o.transpose(1, 2).reshape(b, l, hq * hd) @ params["wo"].to(x.dtype)
+
+
+__all__ = ["KVCache", "MLACache", "cross_apply", "cross_init", "cross_kv",
+           "gqa_apply", "gqa_cache_init", "gqa_init", "mla_apply",
+           "mla_cache_init", "mla_init"]

@@ -5,7 +5,7 @@ The initialisers draw from an explicit `torch.Generator` with the JAX
 package's distributions (a unit normal times fan_in ** -0.5, rounded to the
 param dtype); the two frameworks give different numbers from one seed, so
 the tests carry the JAX params across instead (`lm.params_from_numpy`).
-`chunked_cross_entropy` waits for the training port (ROADMAP A13).
+`chunked_cross_entropy` waits for the training port (ROADMAP A13.5).
 """
 from __future__ import annotations
 

@@ -1,13 +1,20 @@
-"""Decoder-only LM: init / forward / prefill / decode (port of
-`repro.models.lm`, for models built of "full", "swa", "mla" and "full_moe"
-blocks).
+"""Unified LM: init / forward / prefill / decode for every family (port of
+`repro.models.lm`).
+
+Families:
+  decoder-only ("dense"/"moe"/"ssm"/"hybrid"/"vlm"): tokens -> logits.
+  encoder-decoder ("audio", whisper): stub frame embeddings -> encoder;
+  tokens -> decoder with cross attention (`batch["frames"]`, (B, T, d):
+  the conv frontend is a stub in the JAX package too).
 
 Params are the JAX package's tree as plain dicts of tensors: "embed",
 "final_scale", "segments" (a list of {"b{i}": block} dicts whose leaves
-are stacked over layers) and "lm_head" when the embeddings are untied, so
+are stacked over layers), "lm_head" when the embeddings are untied,
+"shared" (zamba2's one attention + FFN, used at every "attn_shared"
+site) and "enc_segments" / "enc_final_scale" (Whisper's encoder), so
 `params_from_numpy` carries the JAX params across as a tree map. The LM
 head is tied to the embedding by default. `loss_fn` waits for the training
-port (ROADMAP A13).
+port (ROADMAP A13.5).
 """
 from __future__ import annotations
 
@@ -19,9 +26,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import dense_init, embed_init, rms_norm
-from repro_torch.models.stack import (check_ported, stack_apply,
-                                      stack_cache_init, stack_decode,
-                                      stack_init, stack_prefill)
+from repro_torch.models.attention import cross_kv
+from repro_torch.models.stack import (check_ported, shared_block_init,
+                                      stack_apply, stack_cache_init,
+                                      stack_decode, stack_init, stack_prefill)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -35,11 +43,15 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a model with
-    a block kind the port does not build yet."""
+    """Raise ValueError for a model with a block kind the stack does not
+    know."""
     for blocks, _ in cfg.segments + cfg.encoder_segments:
         for kind in blocks:
             check_ported(kind)
+
+
+def _has_shared(cfg: ModelConfig) -> bool:
+    return any("attn_shared" in blocks for blocks, _ in cfg.segments)
 
 
 def tree_map(fn, tree):
@@ -77,6 +89,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Dict[str
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), pdt)
+    if _has_shared(cfg):
+        params["shared"] = shared_block_init(gen, cfg, pdt)
+    if cfg.is_encoder_decoder:
+        params["enc_segments"] = stack_init(gen, cfg, cfg.encoder_segments, pdt)
+        params["enc_final_scale"] = torch.zeros((cfg.d_model,), dtype=pdt,
+                                                device=gen.device)
     return params
 
 
@@ -89,9 +107,15 @@ def params_from_numpy(tree, device) -> Any:
 
 #: the params that are matrices, by key: the embedding, the LM head and
 #: every projection (MLA's down- and up-projections, the MoE router and
-#: expert matrices among them). The norm scales stay in the param dtype.
+#: expert matrices, the mLSTM's, sLSTM's input and MLP matrices, Mamba2's
+#: conv weights among them), each cast to the compute dtype wherever the
+#: JAX package uses it. The rest stay in the param dtype: the norm scales,
+#: the biases, and what the recurrent blocks compute with in f32 (sLSTM's
+#: recurrent `r`, Mamba2's `a_log`, `dt_bias`, `d_skip`).
 MATRICES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "w_in",
-                      "w_out", "w_dq", "w_uq", "w_dkv", "w_ukv", "router"})
+                      "w_out", "w_dq", "w_uq", "w_dkv", "w_ukv", "router",
+                      "w_x", "w_z", "w_q", "w_k", "w_g", "w_down", "w",
+                      "mlp_in", "mlp_out", "conv_w"})
 
 
 def compute_params(cfg: ModelConfig, params) -> Any:
@@ -114,14 +138,29 @@ def compute_params(cfg: ModelConfig, params) -> Any:
     return cast(params)
 
 
+def encode(cfg: ModelConfig, params, frames) -> torch.Tensor:
+    """Encoder side (whisper): frames (B, T, d) stub embeddings -> (B, T, d)."""
+    x = torch.as_tensor(frames, device=params["embed"].device).to(_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = stack_apply(params["enc_segments"], cfg, cfg.encoder_segments, x,
+                       positions=positions)
+    return rms_norm(x, params["enc_final_scale"], cfg.norm_eps)
+
+
+def _encode_batch(cfg: ModelConfig, params, batch):
+    return encode(cfg, params, batch["frames"]) if cfg.is_encoder_decoder else None
+
+
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Returns (hidden (B, L, d), aux loss: the MoE blocks' load-balance
-    losses summed, an f32 0 for a dense model)."""
+    losses summed, an f32 0 for a dense model). An encoder-decoder model
+    reads `batch["frames"]` too."""
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     positions = torch.arange(tokens.shape[1], device=x.device)
     x, aux = stack_apply(params["segments"], cfg, cfg.segments, x,
-                         positions=positions)
+                         positions=positions, shared=params.get("shared"),
+                         enc_out=_encode_batch(cfg, params, batch))
     return rms_norm(x, params["final_scale"], cfg.norm_eps), aux
 
 
@@ -134,20 +173,33 @@ def logits_for(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
 # -------------------------------------------------------------------- serving
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     return stack_cache_init(cfg, cfg.segments, batch, max_seq, _dtype(cfg),
-                            resolve_device(device))
+                            resolve_device(device), enc_len=cfg.encoder_len)
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], max_seq: int):
-    """Run the prompt through the stack, filling new caches. Returns
-    (last_logits (B, 1, V), caches)."""
+    """Run the prompt through the stack, filling new caches (an
+    encoder-decoder model's cross K/V first, from `batch["frames"]`).
+    Returns (last_logits (B, 1, V), caches)."""
     device = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=device)
     b, l = tokens.shape
     caches = init_cache(cfg, b, max_seq, device)
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     positions = torch.arange(l, device=device)
+    enc_out = _encode_batch(cfg, params, batch)
+    if enc_out is not None:
+        # compute and store each decoder layer's cross-attention K/V once
+        for (_, rep), seg_params, seg_cache in zip(
+                cfg.segments, params["segments"], caches):
+            cross, cache = seg_params["b0"]["cross"], seg_cache["b0"]
+            for layer in range(rep):
+                k, v = cross_kv({n: w[layer] for n, w in cross.items()}, cfg,
+                                enc_out)
+                cache["cross_k"][layer] = k
+                cache["cross_v"][layer] = v
     x, caches = stack_prefill(params["segments"], caches, cfg, cfg.segments, x,
-                              positions=positions)
+                              positions=positions, shared=params.get("shared"),
+                              enc_out=enc_out)
     x = rms_norm(x, params["final_scale"], cfg.norm_eps)
     return logits_for(cfg, params, x[:, -1:]), caches
 
@@ -160,12 +212,11 @@ def decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor, pos):
     tokens = torch.as_tensor(tokens, device=device)
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     x, caches = stack_decode(params["segments"], caches, cfg, cfg.segments, x,
-                             pos)
+                             pos, shared=params.get("shared"))
     x = rms_norm(x, params["final_scale"], cfg.norm_eps)
     return logits_for(cfg, params, x)[:, 0], caches
 
 
-__all__ = ["MATRICES", "check_supported", "compute_params", "decode_step", "forward",
-           "tree_leaves", "tree_map",
-           "init_cache", "init_params", "logits_for", "params_from_numpy",
-           "prefill"]
+__all__ = ["MATRICES", "check_supported", "compute_params", "decode_step",
+           "encode", "forward", "init_cache", "init_params", "logits_for",
+           "params_from_numpy", "prefill", "tree_leaves", "tree_map"]

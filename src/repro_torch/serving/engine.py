@@ -14,9 +14,13 @@ Every prefill runs the flash-attention kernel once per layer (on the card);
 the per-slot decode is plain PyTorch and launches none (see
 models/attention.py). MoE models ("full_moe") decode their slot batch
 through `moe_apply` as one batch of tokens, as the JAX engine does, so the
-slots' tokens (inactive slots' too) share the experts' capacity. MLA
-models are refused: the JAX engine's per-slot decode cannot run
-`mla_apply` (see `check_servable`). The engine keeps its own copy of the params with
+slots' tokens (inactive slots' too) share the experts' capacity. The
+recurrent blocks (xLSTM, zamba2's Mamba2) ignore positions: every slot's
+state advances each tick, an inactive slot's too, and admit overwrites
+its rows, as in the JAX engine; zamba2's shared-attention sites decode
+per slot like any GQA block. MLA models and encoder-decoder models are
+refused: the JAX engine cannot serve either (see `check_servable`). The
+engine keeps its own copy of the params with
 every matrix cast to the compute dtype once (`lm.compute_params`): the
 same numbers, without a 24 GB cast per decode step at Yi-6B.
 
@@ -55,14 +59,25 @@ class EngineState(NamedTuple):
 
 def check_servable(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a model the engine cannot serve: one
-    with MLA blocks. The JAX engine decodes with per-slot positions
-    `(slots,)`, and the JAX package's `mla_apply` writes its cache with
-    `dynamic_update_slice(..., (0, cache_pos, 0))`, which takes scalar
-    indices only, so `repro.serving.engine.ServeEngine` raises a TypeError
-    on an MLA model; the port adds no feature the reference lacks. An MLA
-    model is served by `lm.prefill` and `lm.decode_step` at a scalar
-    position."""
+    with MLA blocks, or an encoder-decoder model. The JAX engine decodes
+    with per-slot positions `(slots,)`, and the JAX package's `mla_apply`
+    writes its cache with `dynamic_update_slice(..., (0, cache_pos, 0))`,
+    which takes scalar indices only, so `repro.serving.engine.ServeEngine`
+    raises a TypeError on an MLA model. Its admit prefills with tokens
+    only (`src/repro/serving/engine.py:93`), and the JAX package's
+    `lm.prefill` reads `batch["frames"]` for an encoder-decoder model
+    (`src/repro/models/lm.py:116`), so it raises `KeyError: 'frames'` on
+    Whisper. The port adds no feature the reference lacks. Both are served
+    by `lm.prefill` and `lm.decode_step` at a scalar position (Whisper's
+    with its frames)."""
     lm.check_supported(cfg)
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"ServeEngine does not serve {cfg.name}: an encoder-decoder model "
+            f"prefills from its audio frames, and the engine admits a request "
+            f"by its tokens alone (the JAX package's ServeEngine raises "
+            f"KeyError: 'frames' here). Use lm.prefill with batch['frames'] "
+            f"and lm.decode_step")
     if any("mla" in blocks for blocks, _ in cfg.segments):
         raise NotImplementedError(
             f"ServeEngine does not serve {cfg.name}: its MLA blocks take a "
@@ -78,7 +93,8 @@ class ServeEngine:
         """Serves on `device` (the CUDA card when None; raises without
         one); `params` are moved there and cast once. Decoding is greedy
         (the JAX engine's `temperature` is stored there and never read).
-        Raises NotImplementedError for an MLA model (`check_servable`)."""
+        Raises NotImplementedError for an MLA or encoder-decoder model
+        (`check_servable`)."""
         check_servable(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg

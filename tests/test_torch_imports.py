@@ -47,7 +47,7 @@ for mod in ("envs.grid.snake", "envs.puzzle", "envs.multitask", "models.lm",
             "rl.ppo", "train.fused", "sustainability.impact",
             "pool.async_pool", "pool.sharded", "runtime.failures",
             "runtime.elastic", "runtime.supervisor", "checkpoint.manager",
-            "serving.env_service", "models.moe"):
+            "serving.env_service", "models.moe", "models.gla", "models.ssm"):
     assert "repro_torch." + mod in names, mod
 """
 
@@ -57,7 +57,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, text=True,
                          capture_output=True, timeout=120, check=True).stdout
     count, _, bad = out.strip().partition(" ")
-    assert int(count) >= 97, out
+    assert int(count) >= 99, out
     assert bad == "", f"repro_torch pulled in {bad}"
 
 

@@ -4,7 +4,10 @@
 and per-slot decode; ring prefill, decode and per-slot decode past a wrap
 of the ring; a sliding window over a cache shorter than the window), the
 LM's forward, prefill and decode, and `ServeEngine` on the requests of
-tests/test_serving.py, for the reduced yi-6b and h2o-danube-1.8b. The JAX
+tests/test_serving.py, for the reduced yi-6b and h2o-danube-1.8b; the
+forward, prefill and decode of the qk-norm models gemma3-27b and
+chameleon-34b (their norm scales moved off 0); every registry arch built
+in the JAX package's tree. The JAX
 params are carried across with `lm.params_from_numpy`; other inputs are
 numpy draws from a seed. Floats must match to rtol/atol 1e-5 (both sides
 compute in f32 at these configs), tokens exactly; in bf16, the engine's
@@ -45,6 +48,9 @@ def _one_thread():
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("yi-6b", "h2o-danube-1.8b")
+#: the dense models with qk-norm: gemma3's ("swa", "swa", "full") segment,
+#: chameleon's untied LM head
+QK_NORM_ARCHS = ("gemma3-27b", "chameleon-34b")
 
 jax_gqa = jax.jit(jax_attention.gqa_apply, static_argnums=(1,),
                   static_argnames=("window",))
@@ -57,8 +63,16 @@ jax_init = jax.jit(jax_lm.init_params, static_argnums=(0,))
 
 @functools.lru_cache(maxsize=None)
 def jax_setup(arch):
+    """(JAX cfg, the JAX package's init params); QK_NORM_ARCHS' norm scales
+    (0 at init) moved by 0.1 · normal, so that the (1 + scale) paths count."""
     cfg = jax_get_config(arch, reduced=True)
-    return cfg, jax_init(cfg, jax.random.PRNGKey(0))
+    params = jax_init(cfg, jax.random.PRNGKey(0))
+    if arch in QK_NORM_ARCHS:
+        rng = np.random.default_rng(1)
+        params = jax.tree_util.tree_map_with_path(
+            lambda path, a: a + (0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
+            if path[-1].key in NORM_SCALES else a, params)
+    return cfg, params
 
 
 def setup(arch):
@@ -136,7 +150,7 @@ def test_gqa_apply_every_branch_matches_jax(arch, scenario):
         close(cache, jcache, f"{scenario} cache after cache_pos {pos}")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + QK_NORM_ARCHS)
 def test_forward_prefill_decode_match_jax(arch):
     jcfg, jparams, cfg, params = setup(arch)
     rng = np.random.default_rng(7)
@@ -311,10 +325,26 @@ def test_init_params_has_the_jax_tree_and_distributions():
     assert not params["final_scale"].any()
 
 
-def test_unported_block_kinds_raise():
-    for arch in ("xlstm-350m", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            lm.init_params(get_config(arch, reduced=True), torch.Generator(), "cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_unported_block_kinds_raise(arch):
+    """Every block kind of the JAX package is ported: each registry arch's
+    reduced config builds on the CPU in the JAX package's tree (structure
+    and shapes); a kind neither package knows raises ValueError in both."""
+    jcfg, cfg = jax_get_config(arch, reduced=True), get_config(arch, reduced=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    jparams = jax.eval_shape(lambda: jax_lm.init_params(jcfg, jax.random.PRNGKey(0)))
+    assert jax.tree.structure(jax.tree.map(lambda _: 0, params)) == \
+        jax.tree.structure(jax.tree.map(lambda _: 0, jparams))
+    assert [tuple(x.shape) for x in jax.tree.leaves(params)] == \
+        [x.shape for x in jax.tree.leaves(jparams)]
+    unknown = ((("conv",), 1),)
+    with pytest.raises(ValueError, match="unknown block kind 'conv'"):
+        lm.init_params(dataclasses.replace(cfg, segments=cfg.segments + unknown),
+                       torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="unknown block kind 'conv'"):
+        jax.eval_shape(lambda: jax_lm.init_params(
+            dataclasses.replace(jcfg, segments=jcfg.segments + unknown),
+            jax.random.PRNGKey(0)))
 
 
 def test_entry_points_need_a_card_unless_given_the_cpu(monkeypatch, capsys):
