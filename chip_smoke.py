@@ -19,8 +19,9 @@ repository around it. Phases, each printing one JSON line with its seconds:
            D 128) and granite-moe-1b-a400m's (16/8, D 64): a 2,048-token
            prompt over a 4,096-slot cache, a ragged 37-token prompt, a
            decode row at position 3,000, Danube's 4,096 window over 4,608
-           tokens, non-causal 1,024², and B = 2; max error, the share of
-           outputs whose bits differ, and at Yi's and MiniCPM3's prefill
+           tokens, non-causal 1,024², B = 2, and Danube's training forward
+           (B 4, 2,048 tokens); max error, the share of outputs whose bits
+           differ, and at Yi's, MiniCPM3's, Whisper's and Danube's training
            shapes kernel, plain and SDPA times and the bound
   lm       the LM serving path: Yi-6B at full width and depth (random
            params from a seed) through ServeEngine(slots=8, max_seq=4096),
@@ -52,6 +53,23 @@ repository around it. Phases, each printing one JSON line with its seconds:
            the kernel on the real q, k and v of layers 0 and 15 of a
            2,048-token prefill; then granite-moe-1b-a400m at full width and
            depth (GQA 16/8, D 64): the same checks (layers 0 and 23)
+  lm_train LM training: h2o-danube-1.8b at full width and depth (24
+           layers, 1.83 B params, random from a seed) through the port's
+           launcher loop (launch/train.py), 4 × 2,048 Markov tokens a step,
+           remat "dots", 2 warm-up and 10 timed steps, with the counts set
+           to 0 just before and read just after (2 flash launches a layer a
+           step: 576); ms a step, tokens/s, peak memory, the losses (finite,
+           falling) and grad norms; one more step under the profiler
+           (device-busy share, top kernels, the attention backward's and the
+           optimizer update's shares). Then one step of danube at full
+           width, 2 layers, through the kernel against the plain attention
+           forward (gradients within 5e-2 of their norm in bf16, 2e-3 in
+           f32), and remat "dots" and "full" against "none" through the
+           kernel (within 1e-6); every arch's reduced config, 2 steps on the card against
+           the same on the CPU (and accum_steps=2, compress_pod_grads once
+           each); the attention backward (the JAX package's plain
+           recompute) at danube's training shape against autograd through
+           attention_ref, timed beside the kernel's forward and SDPA's
   kernel   the CUDA megastep, which splits each lane's key and runs the
            env's reset in-kernel, against its plain twin on the card (the
            key chain and resets of fresh_rows, then megastep_ref): the four
@@ -2914,7 +2932,9 @@ BF16_ULPS, BF16_FLOOR, BF16_BITS_SHARE = 2, 1e-4, 0.01
 #: kernels line's shape), "window" (Danube's), "mla" (MiniCPM3-4B's
 #: prefill: the kernels line's minicpm3_heads), "whisper" (whisper-base's
 #: encoder over 1,500 frames, batch 4, non-causal: the kernels line's
-#: whisper_heads). The MoE paths' heads, OLMoE-1B-7B's (16, 16, 128) and
+#: whisper_heads), "train" (h2o-danube-1.8b's training forward, 4 × 2,048
+#: tokens, its 4,096 window wider than the sequence: the kernels line's
+#: danube_train_heads). The MoE paths' heads, OLMoE-1B-7B's (16, 16, 128) and
 #: Granite-MoE's (16, 8, 64), are checked at a prefill, a ragged prompt and
 #: a decode; zamba2's at a prefill and a decode; Whisper's decoder at its
 #: prompt and decode steps over the 1,500 frames (cross) and its
@@ -2945,6 +2965,7 @@ ATTN_CASES = (
     ("cross attention, prompt", WHISPER_HEADS, 4, 64, 1500, False, 0, 0, None),
     ("cross attention, decode", WHISPER_HEADS, 4, 1, 1500, False, 0, 0, None),
     ("decode", WHISPER_HEADS, 4, 1, 448, True, 0, 100, None),
+    ("training", DANUBE_HEADS, 4, 2048, 2048, True, 4096, 0, "train"),
 )
 #: the serving run: Yi-6B at full width and depth through ServeEngine
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 64
@@ -3082,9 +3103,10 @@ def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
                             q, k, v, **kw), 20),
                         plain_ms=event_ms(torch, lambda: attention_ref(
                             q, k, v, **kw), 3, warmup=1))
-                    if q_offset == 0 and not window:
+                    if q_offset == 0 and (not window or window >= lk):
                         # is_causal is top-left aligned: key j <= row i, the
-                        # same mask as q_offset 0
+                        # same mask as q_offset 0 (and as a window no
+                        # shorter than the keys)
                         sdpa = lambda: F.scaled_dot_product_attention(
                             q, k, v, is_causal=causal, enable_gqa=True)
                         case["library"] = ("torch.nn.functional."
@@ -4030,6 +4052,304 @@ def phase_whisper(torch, device):
     return max(c["max_abs_err"] for c in real.values()), out
 
 
+# -- LM training -----------------------------------------------------------------
+#: h2o-danube-1.8b at full width and depth (24 layers, 1.83 B params) through
+#: launch/train.py's loop: TRAIN_BATCH × TRAIN_SEQ tokens a step, remat
+#: "dots", TRAIN_WARMUP steps then TRAIN_TIMED timed ones
+TRAIN_ARCH, TRAIN_REMAT = "h2o-danube-1.8b", "dots"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_TIMED = 4, 2048, 2, 10
+#: flash launches a layer a step: the attention forward, and the same again
+#: when "dots" recomputes the layer in the backward (it keeps the products'
+#: outputs, not the kernel's); the Function's backward launches none
+TRAIN_FLASH_PER_LAYER = 2
+#: the kernel-forward check: danube at full width, TRAIN_CHECK_LAYERS of
+#: its 24 layers, one step's gradients through the kernel against the same
+#: with attention on the plain backend (both take the plain backward):
+#: ||kernel - plain|| over every gradient leaf at most TRAIN_GRAD_REL of
+#: ||plain|| (bf16: the JAX package's bf16 attention tolerance; f32: the
+#: f32 decode-against-forward tolerance)
+TRAIN_CHECK_LAYERS = 2
+TRAIN_GRAD_REL = {"bfloat16": 5e-2, "float32": F32_LOGIT_TOL}
+#: the remat policies on the card, through the kernel at those 2 layers in
+#: bf16: "dots" and "full" against "none", the loss and the gradients within
+#: REMAT_REL of their norm (the recomputed forward runs the same kernels on
+#: the same inputs; the bound leaves room for sums in atomic order), and
+#: each launching the kernel again in its recompute
+REMAT_CHECK, REMAT_REL = ("none", "dots", "full"), 1e-6
+#: every arch's reduced config, ARCH_STEPS train steps on the card against
+#: the same steps on the CPU (f32 both, the same params and batches): each
+#: step's loss and grad_norm, and the params after, within ARCH_REL
+#: (relative; the params' over their norm). The two devices order their f32
+#: sums otherwise, as the port and JAX do: 1e-4 is the reduced xLSTM's
+#: noise against JAX (tests/test_torch_ssm_grads.py)
+ARCH_STEPS, ARCH_BATCH, ARCH_SEQ, ARCH_REL = 2, 2, 32, 1e-4
+
+
+def tree_rel_err(torch, got, want):
+    """(||got - want|| / ||want|| over every leaf of two trees, the worst
+    leaf's own)."""
+    from repro_torch.models import lm
+
+    num = den = 0.0
+    worst = 0.0
+    for a, b in zip(lm.tree_leaves(got), lm.tree_leaves(want)):
+        d = float((a.float() - b.float()).norm()) ** 2
+        n = float(b.float().norm()) ** 2
+        num, den = num + d, den + n
+        worst = max(worst, math.sqrt(d / n) if n else math.sqrt(d))
+    return math.sqrt(num / den), worst
+
+
+def train_on_both(torch, device, arch, tc):
+    """ARCH_STEPS steps of `arch`'s reduced config from the same params on
+    the CPU and on the card; the card's flash launches; raises past
+    ARCH_REL. MLA heads the kernel has no instantiation for (flash.HEAD_DIMS;
+    the reduced MiniCPM3's (24, 16)) run the plain attention on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.kernels.attention.flash import HEAD_DIMS
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.train import trainer
+
+    cfg = get_config(arch, reduced=True)
+    heads = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+             if cfg.kv_lora_rank else (cfg.hd, cfg.hd))
+    plain = heads not in HEAD_DIMS
+    params = lm.init_params(cfg, torch.Generator().manual_seed(LM_SEED), "cpu")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=ARCH_SEQ,
+                    global_batch=ARCH_BATCH)
+    batches = [launch_train.batch_at(cfg, dc, s, "cpu") for s in range(ARCH_STEPS)]
+    runs = {}
+    for dev in (torch.device("cpu"), device):
+        p = lm.tree_map(lambda x: x.to(dev, copy=True), params)
+        opt = trainer.make_optimizer(tc).init(p)
+        step = trainer.make_train_step(cfg, tc)
+        metrics = []
+        before = read_counts()["flash"]
+        route = (captured_attention(set(), "torch") if plain and dev.type == "cuda"
+                 else contextlib.nullcontext())
+        with route:
+            for batch in batches:
+                p, opt, m = step(p, opt, {k: v.to(dev) for k, v in batch.items()})
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev.type] = (metrics, p, read_counts()["flash"] - before)
+    (cpu_m, cpu_p, _), (card_m, card_p, flash) = runs["cpu"], runs["cuda"]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    out = {"losses": [m[0] for m in card_m], "cpu_losses": [m[0] for m in cpu_m],
+           "loss_rel_err": max(rel(a[0], b[0]) for a, b in zip(card_m, cpu_m)),
+           "grad_norm_rel_err": max(rel(a[1], b[1]) for a, b in zip(card_m, cpu_m)),
+           "params_rel_err": tree_rel_err(torch, lm.tree_map(lambda x: x.cpu(), card_p),
+                                          cpu_p)[0],
+           "flash_launches": flash, "attention": "plain (no kernel for the "
+           f"reduced heads {heads})" if plain else "flash kernel",
+           "tol": ARCH_REL}
+    if not all(math.isfinite(m[0]) for m in card_m) or max(
+            out["loss_rel_err"], out["grad_norm_rel_err"],
+            out["params_rel_err"]) > ARCH_REL:
+        raise AssertionError(f"{arch} train steps, card against CPU: {out}")
+    return out
+
+
+def attention_backward_check(torch, device, bw, fp32_flops, bf16_flops):
+    """The attention Function (kernel forward, the JAX package's plain
+    backward) at h2o-danube-1.8b's training shape: its gradients against
+    autograd through attention_ref on the card, in bf16 and f32 (within the
+    JAX package's attention tolerance, relative to each gradient's norm);
+    in bf16 the backward's time beside the kernel's forward, SDPA's forward
+    and SDPA's backward, and the backward's bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import attention_ref, flash_attention_cuda, ops
+
+    hq, hkv, d, dv = DANUBE_HEADS
+    b, l, window = TRAIN_BATCH, TRAIN_SEQ, 4096
+    kw = dict(causal=True, window=window)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        q, k, v = (x.requires_grad_() for x in attention_inputs(
+            torch, DANUBE_HEADS, b, l, l, dtype, 99, device))
+        g = torch.Generator(device=device).manual_seed(100)
+        do = torch.randn((b, hq, l, dv), generator=g, device=device).to(dtype)
+        with uncounted():
+            o = ops.attention(q, k, v, **kw)
+            got = torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+            want = torch.autograd.grad(attention_ref(q, k, v, **kw), (q, k, v), do)
+            errs = {f"d{n}": float((a.float() - w.float()).norm() / w.float().norm())
+                    for n, a, w in zip("qkv", got, want)}
+            case = {"dtype": name, "heads": DANUBE_HEADS, "B": b, "L": l,
+                    "window": window, "rel_err": errs, "tol": ATTN_TOL[name],
+                    "grad_dtypes": sorted({str(x.dtype) for x in got})}
+            if max(errs.values()) > ATTN_TOL[name] or case["grad_dtypes"] != [str(dtype)]:
+                raise AssertionError(f"attention backward {name}: {case}")
+            del want
+            if dtype == torch.bfloat16:
+                pairs, _, fwd_flops = attention_work(b, DANUBE_HEADS, l, l, True,
+                                                     window, 0, 2)
+                # recompute S (2D), dP (2Dv), dV (2Dv), dQ (2D), dK (2D) a pair;
+                # q, k, v, dO read once, dQ, dK, dV written once
+                flops = pairs * (6 * d + 4 * dv)
+                moved = 2 * b * (hq * l * (2 * d + dv) + hkv * l * 2 * (d + dv))
+                bound_ms, bound_by = bound(moved, flops, bw, bf16_flops)
+                qd, kd, vd = (x.detach() for x in (q, k, v))
+                sdpa_o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                        enable_gqa=True)
+                case.update(
+                    live_pairs=pairs, backward_flops=flops, backward_bytes=moved,
+                    backward_bound_ms=bound_ms, backward_bound_by=bound_by,
+                    backward_ms=event_ms(torch, lambda: torch.autograd.grad(
+                        o, (q, k, v), do, retain_graph=True), 5, warmup=1),
+                    kernel_forward_ms=event_ms(torch, lambda: flash_attention_cuda(
+                        qd, kd, vd, **kw), 20),
+                    sdpa_forward_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qd, kd, vd, is_causal=True, enable_gqa=True), 20),
+                    sdpa_backward_ms=event_ms(torch, lambda: torch.autograd.grad(
+                        sdpa_o, (q, k, v), do, retain_graph=True), 20),
+                    forward_flops=fwd_flops,
+                    clock="CUDA events: backward over 5 calls, the rest over 20")
+                del sdpa_o
+        out[name] = case
+        del q, k, v, do, o, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train(torch, device, bw, fp32_flops, bf16_flops):
+    """LM training: h2o-danube-1.8b at full width and depth through the
+    port's launcher loop (launch/train.py: the main path of this phase),
+    counts set to 0 just before and read just after (TRAIN_FLASH_PER_LAYER
+    flash launches a layer a step); ms a step, tokens/s, peak memory, the
+    losses and grad norms; one more step under the profiler. Then the
+    kernel forward against the plain forward at 2 layers, every reduced
+    arch's train steps on the card against the CPU (accum_steps=2 and
+    compress_pod_grads once each), and the attention backward alone."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.train import trainer
+
+    t0 = time.perf_counter()
+    out = {"phase": "lm_train"}
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    cfg = get_config(TRAIN_ARCH)
+    argv = ["--arch", TRAIN_ARCH, "--no-reduced", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--remat", TRAIN_REMAT, "--steps",
+            str(steps), "--log-every", "1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = launch_train.main(argv)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"megastep": 0, "raster": 0,
+            "flash": steps * TRAIN_FLASH_PER_LAYER * cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"lm_train: launches {launches}, want {want}")
+    hist = run["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses) or not (
+            statistics.mean(losses[-3:]) < losses[0]):
+        raise AssertionError(f"lm_train: losses {losses} (finite, the mean of "
+                             f"the last 3 below the first)")
+    timed_s = [h["seconds"] for h in hist[TRAIN_WARMUP:]]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out["run"] = {
+        "argv": argv, "params": sum(x.numel() for x in lm.tree_leaves(run["params"])),
+        "layers": cfg.num_layers, "steps": steps, "timed_steps": TRAIN_TIMED,
+        "tokens_per_step": tokens,
+        "ms_per_step_median": 1e3 * statistics.median(timed_s),
+        "ms_per_step": [1e3 * x for x in timed_s],
+        "tokens_per_s": tokens * len(timed_s) / sum(timed_s),
+        "peak_gb": peak / 1e9, "losses": losses,
+        "grad_norms": [h["grad_norm"] for h in hist], "lrs": [h["lr"] for h in hist],
+        "launches": launches, "flash_per_step": launches["flash"] / steps,
+        "clock": "host clock around each step, ended by reading its loss"}
+    emit({"phase": "lm_train_run", **out["run"]})
+
+    # one more step of the same run under the profiler
+    params, opt, step_fn = run["params"], run["opt"], run["step_fn"]
+    batch = launch_train.batch_at(cfg, run["dc"], steps, device)
+    del run
+    with uncounted():
+        prof = profile_window(torch, lambda: step_fn(params, opt, batch), 1,
+                              ranges=trainer.STAGES + ("attention::backward",))
+    busy = prof["device_busy_ms"]
+    prof["device_share"] = ({n: r["device_ms"] / busy
+                             for n, r in prof["ranges_ms"].items()}
+                            if busy else None)
+    out["profiled_step"] = prof
+    del params, opt, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the kernel forward against the plain forward, 2 layers at full width
+    checks = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, segments=((("swa",), TRAIN_CHECK_LAYERS),),
+                                dtype=dtype)
+        p = lm.init_params(c, torch.Generator(device=device).manual_seed(LM_SEED),
+                           device)
+        dc = DataConfig(vocab_size=c.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH)
+        batch = launch_train.batch_at(c, dc, 0, device)
+        remats = {}
+        with uncounted():
+            for remat in REMAT_CHECK if dtype == "bfloat16" else ("none",):
+                before = read_counts()["flash"]
+                remats[remat] = trainer.loss_and_grads(c, p, batch, remat) + (
+                    read_counts()["flash"] - before,)
+            with captured_attention(set(), "torch"):
+                loss_p, grads_p = trainer.loss_and_grads(c, p, batch, "none")
+        loss_k, grads_k, kernel_launches = remats.pop("none")
+        rel, worst = tree_rel_err(torch, grads_k, grads_p)
+        checks[dtype] = {"layers": TRAIN_CHECK_LAYERS, "loss_kernel": float(loss_k),
+                         "loss_plain": float(loss_p), "grad_rel_err": rel,
+                         "worst_leaf_rel_err": worst, "tol": TRAIN_GRAD_REL[dtype],
+                         "kernel_launches": kernel_launches}
+        if kernel_launches != TRAIN_CHECK_LAYERS or rel > TRAIN_GRAD_REL[dtype]:
+            raise AssertionError(f"lm_train kernel against plain forward, "
+                                 f"{dtype}: {checks[dtype]}")
+        # the remat policies against "none", through the kernel
+        for remat, (loss_r, grads_r, launches_r) in remats.items():
+            checks[dtype][f"remat_{remat}"] = {
+                "loss": float(loss_r), "grad_rel_err": tree_rel_err(
+                    torch, grads_r, grads_k)[0], "kernel_launches": launches_r,
+                "tol": REMAT_REL}
+            if (launches_r != TRAIN_FLASH_PER_LAYER * TRAIN_CHECK_LAYERS
+                    or checks[dtype][f"remat_{remat}"]["grad_rel_err"] > REMAT_REL
+                    or abs(float(loss_r) - float(loss_k)) > REMAT_REL * abs(float(loss_k))):
+                raise AssertionError(f"lm_train remat {remat!r} against 'none': "
+                                     f"{checks[dtype]}")
+        del p, grads_k, grads_p, batch, remats
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["kernel_vs_plain_forward"] = checks
+
+    # every reduced arch on the card against the CPU
+    tc = trainer.TrainConfig(lr=1e-3, warmup=1, total_steps=10)
+    with uncounted():
+        archs = {arch: train_on_both(torch, device, arch, tc) for arch in ARCH_IDS}
+        archs[f"{TRAIN_ARCH} accum_steps=2"] = train_on_both(
+            torch, device, TRAIN_ARCH, dataclasses.replace(tc, accum_steps=2))
+        archs[f"{TRAIN_ARCH} compress_pod_grads"] = train_on_both(
+            torch, device, TRAIN_ARCH,
+            dataclasses.replace(tc, compress_pod_grads=True))
+    out["reduced_archs_card_vs_cpu"] = archs
+
+    out["attention_backward"] = attention_backward_check(torch, device, bw,
+                                                         fp32_flops, bf16_flops)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def phase_ssm_profile(torch, device):
     """Where a recurrent prefill's time goes, not run by main(): profiler
     windows over one prefill of zamba2-2.7B and of xLSTM-350M at 2,048
@@ -4192,13 +4512,15 @@ def main() -> int:
     moe_err, moe_out = phase_moe(torch, device)
     ssm_err, ssm_out = phase_ssm(torch, device)
     whisper_err, whisper_out = phase_whisper(torch, device)
+    train_out = phase_lm_train(torch, device, bw, flops, bf16_flops)
     flash_err = max(flash_err, lm_err, mla_err, moe_err, ssm_err, whisper_err)
     flash_paths = {"lm": lm_out["serve"]["launches"]["flash"],
                    "mla": mla_out["run"]["launches"]["flash"],
                    "moe": moe_out["serve"]["launches"]["flash"],
                    "ssm": sum(ssm_out[a]["serve"]["launches"]["flash"]
                               for a in SSM_ARCHS),
-                   "whisper": whisper_out["run"]["launches_total"]}
+                   "whisper": whisper_out["run"]["launches_total"],
+                   "train": train_out["run"]["launches"]["flash"]}
     mega_err = phase_kernel(torch, device)
     raster_err, grid_raster = phase_raster(torch, device, bw, flops)
     pools, vmap_pools, render_pools, launches = phase_main(torch, device, sync)
@@ -4316,6 +4638,7 @@ def main() -> int:
                                         "flops")},
         "minicpm3_heads": heads_row(timed_flash["mla"]),
         "whisper_heads": heads_row(timed_flash["whisper"]),
+        "danube_train_heads": heads_row(timed_flash["train"]),
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

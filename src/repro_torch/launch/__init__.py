@@ -1,1 +1,1 @@
-"""launch subsystem: command-line entry points (serve.py so far)."""
+"""launch subsystem: command-line entry points (serve.py, train.py)."""

@@ -16,9 +16,12 @@ a running-max stabiliser. The JAX package computes it with plain `jnp`
 above `chunk`) and computes each chunk's intra-chunk product, decayed
 query and decayed key with its formulas, batched over the chunks, which do
 not depend on one another; only the carried state is sequential, one
-`torch.baddbmm` per chunk for the output and a multiply and a
-`torch.baddbmm` for the state, where the JAX package's `lax.scan` runs the
-whole body per chunk. A prompt of prime length takes chunk 1: L steps.
+`torch.bmm` per chunk for the output's inter-chunk part and a multiply and
+a `torch.baddbmm` for the state, where the JAX package's `lax.scan` runs
+the whole body per chunk; the inter-chunk parts are added to the
+intra-chunk products at once, as JAX adds `y_intra + y_inter`, and nothing
+is written in place, so the scan is differentiable. A prompt of prime
+length takes chunk 1: L steps.
 """
 from __future__ import annotations
 
@@ -73,12 +76,13 @@ def gla_chunked(
     decay_total = torch.exp(total)[..., None]            # (nc, BH, 1, 1)
 
     s = s0.to(f32).reshape(b * h, kk, vv)
-    for yn, qn, kn, vn, an in zip(y.unbind(0), qd.unbind(0), kd_t.unbind(0),
-                                  vs.unbind(0), decay_total.unbind(0)):
+    y_inter = []
+    for qn, kn, vn, an in zip(qd.unbind(0), kd_t.unbind(0), vs.unbind(0),
+                              decay_total.unbind(0)):
         # inter-chunk: the carried state, then the state update
-        yn.baddbmm_(qn, s)
+        y_inter.append(torch.bmm(qn, s))
         s = torch.baddbmm(s * an, kn, vn)
-    y = y.transpose(0, 1).reshape(b, h, l, vv).to(q.dtype)
+    y = (y + torch.stack(y_inter)).transpose(0, 1).reshape(b, h, l, vv).to(q.dtype)
     return y, s.reshape(b, h, kk, vv)
 
 

@@ -5,7 +5,8 @@ The initialisers draw from an explicit `torch.Generator` with the JAX
 package's distributions (a unit normal times fan_in ** -0.5, rounded to the
 param dtype); the two frameworks give different numbers from one seed, so
 the tests carry the JAX params across instead (`lm.params_from_numpy`).
-`chunked_cross_entropy` waits for the training port (ROADMAP A13.5).
+`chunked_cross_entropy` is the LM loss: it never holds (B, L, V) logits,
+neither in the forward nor for the backward.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # -- initialisers -------------------------------------------------------------
@@ -73,5 +75,45 @@ def swiglu_apply(params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(gate_up[..., 0, :]) * gate_up[..., 1, :]) @ params["w_out"].to(x.dtype)
 
 
-__all__ = ["apply_rope", "dense_init", "embed_init", "rms_norm", "rope_freqs",
-           "swiglu_apply", "swiglu_init"]
+# -- loss ---------------------------------------------------------------------
+def _chunk_loss(h, head, y, m):
+    """Summed masked CE of one chunk: logits `h @ head` in h's dtype, then
+    f32, as the JAX package orders it."""
+    logits = (h @ head.to(h.dtype)).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    return torch.sum((logz - gold) * m)
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, embed: torch.Tensor,
+                          labels: torch.Tensor, mask: torch.Tensor | None = None,
+                          chunk: int = 512,
+                          transpose_head: bool = True) -> torch.Tensor:
+    """Cross-entropy without materialising (B, L, V) logits (port of
+    `repro.models.layers.chunked_cross_entropy`).
+
+    hidden (B, L, d); embed the tied embedding (V, d) (`transpose_head`) or
+    the head matrix (d, V); labels (B, L) integers; mask (B, L) or None.
+    The sequence is cut into chunks of the largest divisor of L not above
+    `chunk`, and each chunk's loss runs under a non-reentrant
+    `checkpoint`, as JAX's `@jax.checkpoint` body: its (B, chunk, V) logits
+    are recomputed in the backward, never kept. The f32 sum over the chunks
+    is divided by max(sum(mask), 1)."""
+    b, l, d = hidden.shape
+    chunk = min(chunk, l)
+    while l % chunk:  # the largest divisor of l not above chunk
+        chunk -= 1
+    head = embed.T if transpose_head else embed   # (d, V)
+    if mask is None:
+        mask = torch.ones((b, l), dtype=torch.float32, device=hidden.device)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, l, chunk):
+        part = slice(start, start + chunk)
+        total = total + checkpoint(_chunk_loss, hidden[:, part], head,
+                                   labels[:, part], mask[:, part],
+                                   use_reentrant=False)
+    return total / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+__all__ = ["apply_rope", "chunked_cross_entropy", "dense_init", "embed_init",
+           "rms_norm", "rope_freqs", "swiglu_apply", "swiglu_init"]

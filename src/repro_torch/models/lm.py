@@ -13,8 +13,10 @@ are stacked over layers), "lm_head" when the embeddings are untied,
 "shared" (zamba2's one attention + FFN, used at every "attn_shared"
 site) and "enc_segments" / "enc_final_scale" (Whisper's encoder), so
 `params_from_numpy` carries the JAX params across as a tree map. The LM
-head is tied to the embedding by default. `loss_fn` waits for the training
-port (ROADMAP A13.5).
+head is tied to the embedding by default. `loss_fn` is the training loss:
+the chunked cross entropy (no (B, L, V) logits) plus `AUX_WEIGHT` times the
+MoE blocks' load-balance losses; `forward` and `encode` take the JAX
+package's `remat` policy (models/stack.py).
 """
 from __future__ import annotations
 
@@ -25,13 +27,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import dense_init, embed_init, rms_norm
+from repro_torch.models.layers import (chunked_cross_entropy, dense_init,
+                                       embed_init, rms_norm)
 from repro_torch.models.attention import cross_kv
 from repro_torch.models.stack import (check_ported, shared_block_init,
                                       stack_apply, stack_cache_init,
                                       stack_decode, stack_init, stack_prefill)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: weight of the MoE load-balance loss in `loss_fn`
+AUX_WEIGHT = 0.01
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -138,20 +143,22 @@ def compute_params(cfg: ModelConfig, params) -> Any:
     return cast(params)
 
 
-def encode(cfg: ModelConfig, params, frames) -> torch.Tensor:
+def encode(cfg: ModelConfig, params, frames, remat: str = "none") -> torch.Tensor:
     """Encoder side (whisper): frames (B, T, d) stub embeddings -> (B, T, d)."""
     x = torch.as_tensor(frames, device=params["embed"].device).to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = stack_apply(params["enc_segments"], cfg, cfg.encoder_segments, x,
-                       positions=positions)
+                       positions=positions, remat=remat)
     return rms_norm(x, params["enc_final_scale"], cfg.norm_eps)
 
 
-def _encode_batch(cfg: ModelConfig, params, batch):
-    return encode(cfg, params, batch["frames"]) if cfg.is_encoder_decoder else None
+def _encode_batch(cfg: ModelConfig, params, batch, remat: str = "none"):
+    return (encode(cfg, params, batch["frames"], remat)
+            if cfg.is_encoder_decoder else None)
 
 
-def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            remat: str = "none"):
     """Returns (hidden (B, L, d), aux loss: the MoE blocks' load-balance
     losses summed, an f32 0 for a dense model). An encoder-decoder model
     reads `batch["frames"]` too."""
@@ -160,8 +167,25 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     positions = torch.arange(tokens.shape[1], device=x.device)
     x, aux = stack_apply(params["segments"], cfg, cfg.segments, x,
                          positions=positions, shared=params.get("shared"),
-                         enc_out=_encode_batch(cfg, params, batch))
+                         enc_out=_encode_batch(cfg, params, batch, remat),
+                         remat=remat)
     return rms_norm(x, params["final_scale"], cfg.norm_eps), aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            remat: str = "none") -> torch.Tensor:
+    """The training loss (an f32 scalar): the mean next-token cross entropy
+    of `batch["labels"]` (over `batch["mask"]` where given) plus
+    `AUX_WEIGHT` times the aux loss."""
+    hidden, aux = forward(cfg, params, batch, remat)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    device = hidden.device
+    mask = batch.get("mask")
+    ce = chunked_cross_entropy(
+        hidden, head, torch.as_tensor(batch["labels"], device=device),
+        mask=None if mask is None else torch.as_tensor(mask, device=device),
+        transpose_head=cfg.tie_embeddings)
+    return ce + AUX_WEIGHT * aux
 
 
 def logits_for(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
@@ -217,6 +241,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor, pos):
     return logits_for(cfg, params, x)[:, 0], caches
 
 
-__all__ = ["MATRICES", "check_supported", "compute_params", "decode_step",
-           "encode", "forward", "init_cache", "init_params", "logits_for",
-           "params_from_numpy", "prefill", "tree_leaves", "tree_map"]
+__all__ = ["AUX_WEIGHT", "MATRICES", "check_supported", "compute_params",
+           "decode_step", "encode", "forward", "init_cache", "init_params",
+           "logits_for", "loss_fn", "params_from_numpy", "prefill",
+           "tree_leaves", "tree_map"]

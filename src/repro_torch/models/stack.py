@@ -13,10 +13,22 @@ zamba2's "attn_shared" sites take their attention and FFN weights from
 `shared` (`shared_block_init`, once per model) and keep their own norms
 and KV caches; Whisper's "dec" blocks attend over the encoder's output
 `enc_out`, or over the cross K/V that prefill stored in their cache.
+
+The forward with no cache (`stack_apply`, what training differentiates)
+takes each segment's layers apart with `torch.unbind`, so that the
+backward stacks a leaf's per-layer gradients once, and runs each layer
+under the JAX package's `remat` policy: "none", "full" (a non-reentrant
+`checkpoint` of the layer) or "dots" (`dots_with_no_batch_dims_saveable`:
+a selective checkpoint that keeps the outputs of the plain matrix products
+x @ W and recomputes the rest).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.attention import (cross_apply, cross_init, cross_kv,
                                           gqa_apply, gqa_cache_init, gqa_init,
@@ -167,43 +179,77 @@ def stack_cache_init(cfg, segments, batch: int, max_seq: int, dtype,
 # -------------------------------------------------------------- forward passes
 def _run(seg_params, caches, cfg, segments, x, *, positions, cache_pos,
          shared=None, enc_out=None):
-    """Every layer in order; caches (or None) written in place. Returns
-    (x, the blocks' aux losses summed in layer order: 0.0, a float, when no
-    block has one, so a dense model, a prefill and a decode launch no aux
-    work)."""
-    aux = 0.0
+    """Every layer in order, its caches written in place (prefill and
+    decode, which read no aux loss)."""
     for s, ((blocks, rep), params) in enumerate(zip(segments, seg_params)):
         for layer in range(rep):
-            lp = _layer(params, layer)
-            lc = _layer(caches[s], layer) if caches is not None else None
+            lp, lc = _layer(params, layer), _layer(caches[s], layer)
             for i, kind in enumerate(blocks):
-                x, a, _ = block_apply(lp[f"b{i}"], cfg, kind, x,
+                x, _, _ = block_apply(lp[f"b{i}"], cfg, kind, x,
                                       positions=positions, shared=shared,
-                                      enc_out=enc_out,
-                                      cache=None if lc is None else lc[f"b{i}"],
+                                      enc_out=enc_out, cache=lc[f"b{i}"],
                                       cache_pos=cache_pos)
-                if isinstance(a, torch.Tensor):
-                    aux = aux + a
+    return x
+
+
+#: `remat` policies of `stack_apply`, as in the JAX package
+REMAT = ("none", "dots", "full")
+#: what "dots" saves: the outputs of the products without batch dimensions
+#: (JAX's `dots_with_no_batch_dims_saveable`), which every x @ W of a
+#: (B, L, d) activation and a weight matrix folds to; batched products
+#: (`bmm`: the recurrent scans', the MoE experts') are recomputed, as there
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _unstack(tree, rep: int) -> list:
+    """The `rep` per-layer trees of a tree of stacked leaves, by
+    `torch.unbind`: a leaf's backward stacks its layers' gradients once,
+    where indexing writes a whole leaf of zeros per layer."""
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    parts = {k: _unstack(v, rep) for k, v in tree.items()}
+    return [{k: part[i] for k, part in parts.items()} for i in range(rep)]
+
+
+def _layer_apply(lp, x, aux, *, cfg, blocks, positions, shared, enc_out):
+    """One layer's blocks with no cache: (x, aux plus their aux losses)."""
+    for i, kind in enumerate(blocks):
+        x, a, _ = block_apply(lp[f"b{i}"], cfg, kind, x, positions=positions,
+                              shared=shared, enc_out=enc_out)
+        if isinstance(a, torch.Tensor):
+            aux = aux + a
     return x, aux
 
 
 def stack_apply(seg_params, cfg, segments, x, *, positions, shared=None,
-                enc_out=None):
+                enc_out=None, remat: str = "none"):
     """Forward with no cache. Returns (x, total aux loss: an f32 scalar),
     summed over the blocks as the JAX package's scan sums it from 0 (0 for
-    the dense kinds)."""
-    x, aux = _run(seg_params, None, cfg, segments, x, positions=positions,
-                  cache_pos=None, shared=shared, enc_out=enc_out)
-    if not isinstance(aux, torch.Tensor):
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    the dense kinds). `remat` ("none", "dots", "full") sets what each
+    layer keeps for the backward (module docstring)."""
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat {remat!r}; expected one of {REMAT}")
+    context = {} if remat != "dots" else dict(context_fn=functools.partial(
+        create_selective_checkpoint_contexts, list(_DOTS)))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for (blocks, rep), params in zip(segments, seg_params):
+        body = functools.partial(_layer_apply, cfg=cfg, blocks=blocks,
+                                 positions=positions, shared=shared,
+                                 enc_out=enc_out)
+        for lp in _unstack(params, rep):
+            if remat == "none":
+                x, aux = body(lp, x, aux)
+            else:
+                x, aux = checkpoint(body, lp, x, aux, use_reentrant=False,
+                                    **context)
     return x, aux
 
 
 def stack_prefill(seg_params, caches, cfg, segments, x, *, positions,
                   shared=None, enc_out=None):
     """Prefill: forward while writing caches at positions [0, L)."""
-    x, _ = _run(seg_params, caches, cfg, segments, x, positions=positions,
-                cache_pos=0, shared=shared, enc_out=enc_out)
+    x = _run(seg_params, caches, cfg, segments, x, positions=positions,
+             cache_pos=0, shared=shared, enc_out=enc_out)
     return x, caches
 
 
@@ -215,12 +261,12 @@ def stack_decode(seg_params, caches, cfg, segments, x, pos, *, shared=None):
         positions = pos
     else:
         positions = torch.tensor([int(pos)], device=x.device)
-    x, _ = _run(seg_params, caches, cfg, segments, x, positions=positions,
-                cache_pos=pos, shared=shared)
+    x = _run(seg_params, caches, cfg, segments, x, positions=positions,
+             cache_pos=pos, shared=shared)
     return x, caches
 
 
-__all__ = ["ATTN_KINDS", "PORTED_KINDS", "SSM_KINDS", "block_apply",
+__all__ = ["ATTN_KINDS", "PORTED_KINDS", "REMAT", "SSM_KINDS", "block_apply",
            "block_cache_init", "block_init", "check_ported",
            "shared_block_init", "stack_apply", "stack_cache_init",
            "stack_decode", "stack_init", "stack_prefill"]

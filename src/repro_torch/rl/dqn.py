@@ -28,8 +28,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 from torch.profiler import record_function
-from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
-                                 tree_unflatten)
+from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch import random as R
 from repro_torch.core.env import Env
@@ -40,7 +39,8 @@ from repro_torch.rl.networks import (cnn_apply, cnn_init, f32_convs,
                                      mlp_apply, mlp_init)
 from repro_torch.rl.replay import (ReplayState, replay_add_batch, replay_init,
                                    replay_sample)
-from repro_torch.train.optim import Adam, AdamState, huber_loss, linear_schedule
+from repro_torch.train.optim import (Adam, AdamState, huber_loss,
+                                     linear_schedule, value_and_grad)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,17 +141,6 @@ def _td_loss(apply_fn, params, target, batch, discount):
     q_next = apply_fn(target, next_obs).amax(-1)
     tgt = reward + discount * (1.0 - terminal) * q_next.detach()
     return huber_loss(q_sa, tgt).mean()
-
-
-def value_and_grad(loss_fn, params):
-    """(loss, grads): `loss_fn(params)` and its gradients over the param
-    tree, by `torch.autograd.grad` on detached copies of the leaves."""
-    leaves, spec = tree_flatten(params)
-    leaves = [x.detach().requires_grad_() for x in leaves]
-    with torch.enable_grad():
-        loss = loss_fn(tree_unflatten(leaves, spec))
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(list(grads), spec)
 
 
 def make_learn_step(apply_fn, cfg: DQNConfig):

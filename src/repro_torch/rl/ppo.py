@@ -26,9 +26,8 @@ from repro_torch.core.env import Env
 from repro_torch.device import resolve_device
 from repro_torch.pool import PoolState, make_vec
 from repro_torch.pool.envpool import _load_like
-from repro_torch.rl.dqn import value_and_grad
 from repro_torch.rl.networks import Activation, mlp_apply, mlp_init
-from repro_torch.train.optim import Adam, AdamState
+from repro_torch.train.optim import Adam, AdamState, value_and_grad
 
 
 @dataclasses.dataclass(frozen=True)

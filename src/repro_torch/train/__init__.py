@@ -3,8 +3,9 @@
 `repro_torch.train.fused` is the fused trainer: train steps captured into
 CUDA graphs and replayed with the carry updated in place, and seeds × lr
 fleets (`fleet`). `repro_torch.train.optim` holds the optimizers,
-schedules and losses the learners share. Exports resolve lazily (PEP 562),
-as in the JAX package.
+schedules and losses the learners share; `trainer` is the LM train step
+and `compression` its int8 gradient round trip. Exports resolve lazily
+(PEP 562), as in the JAX package.
 """
 
 #: public surface: the JAX package's `repro.train` less `lower_train_chunk`,

@@ -2,7 +2,9 @@
 
 Pure functions over param trees (lists, dicts and tuples of tensors), as in
 the JAX package: `Adam(...).update(grads, state, params)` returns new
-params and a new `AdamState` and changes nothing it was given. The update
+params and a new `AdamState` and changes nothing it was given;
+`Adam.update_` is the same update written in place (the JAX launcher's
+donated buffers), for states that do not fit twice. The update
 is the JAX package's formula, rounded as it is written there; it is not
 `torch.optim.Adam`, which folds the bias corrections into the step size
 and rounds otherwise. A learning rate or step that lives on the device
@@ -15,7 +17,8 @@ import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
-from torch.utils._pytree import tree_leaves, tree_map
+from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
+                                 tree_unflatten)
 
 from repro_torch.numerics import div, sqrt
 
@@ -76,6 +79,35 @@ class Adam:
 
         return tree_map(upd, params, mu, nu), AdamState(step, mu, nu)
 
+    def update_(self, grads: Pytree, state: AdamState,
+                params: Pytree) -> Tuple[Pytree, AdamState]:
+        """`update` with the JAX launcher's donation (`donate_argnums`):
+        the same arithmetic, leaf by leaf, written into `params` and the
+        state's mu and nu in place, which it returns. Beside the state and
+        the gradients it holds one leaf's temporaries, where `update` holds
+        new params, mu and nu and the clipped gradients whole."""
+        scale = (clip_scale(grads, self.clip_norm)
+                 if self.clip_norm is not None else None)
+        step = state.step + 1
+        b1, b2 = self.b1, self.b2
+        t = step.to(torch.float32)
+        mu_hat_scale = 1.0 / (1 - torch.pow(b1, t))
+        nu_hat_scale = 1.0 / (1 - torch.pow(b2, t))
+        lr = self._lr(step)
+
+        def upd_(p, g, m, v):
+            if scale is not None:
+                g = (g * scale).to(g.dtype)
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * (g * g))
+            u = (m * mu_hat_scale) / (sqrt(v * nu_hat_scale) + self.eps)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            return p.copy_((p - lr * u).to(p.dtype))
+
+        return (tree_map(upd_, params, grads, state.mu, state.nu),
+                AdamState(step, state.mu, state.nu))
+
 
 @dataclasses.dataclass(frozen=True)
 class SGD:
@@ -99,16 +131,35 @@ class SGD:
         return new, AdamState(step, mu, None)
 
 
+def value_and_grad(loss_fn: Callable, params: Pytree):
+    """(loss, grads): `loss_fn(params)` and its gradients over the param
+    tree, by `torch.autograd.grad` on detached copies of the leaves; a leaf
+    the loss does not reach gets zeros, as in JAX."""
+    leaves, spec = tree_flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(leaves, spec))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), tree_unflatten(list(grads), spec)
+
+
 def global_norm(tree: Pytree) -> torch.Tensor:
     return sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(tree: Pytree, max_norm: float) -> Pytree:
+def clip_scale(tree: Pytree, max_norm: float) -> torch.Tensor:
+    """min(max_norm / global_norm(tree), 1): the factor of
+    `clip_by_global_norm`."""
     norm = global_norm(tree)
     # a tensor numerator: `float / tensor` is a reciprocal and a multiply
-    scale = torch.clamp(norm.new_full((), max_norm)
-                        / torch.clamp(norm, min=1e-12), max=1.0)
+    return torch.clamp(norm.new_full((), max_norm)
+                       / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+def clip_by_global_norm(tree: Pytree, max_norm: float) -> Pytree:
+    scale = clip_scale(tree, max_norm)
     return tree_map(lambda x: (x * scale).to(x.dtype), tree)
 
 
@@ -151,6 +202,6 @@ def softmax_cross_entropy(logits: torch.Tensor,
     return logz - gold
 
 
-__all__ = ["Adam", "AdamState", "SGD", "clip_by_global_norm",
+__all__ = ["Adam", "AdamState", "SGD", "clip_by_global_norm", "clip_scale",
            "cosine_schedule", "global_norm", "huber_loss", "linear_schedule",
-           "softmax_cross_entropy"]
+           "softmax_cross_entropy", "value_and_grad"]

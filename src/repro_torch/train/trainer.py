@@ -1,0 +1,131 @@
+"""Train-step factory: loss -> grads -> optimizer, with the scale knobs (port
+of `repro.train.trainer`).
+
+Knobs (`TrainConfig`, the JAX package's fields and defaults):
+  - remat        : "none" | "dots" | "full" activation checkpointing
+                   (models/stack.py)
+  - accum_steps  : gradient accumulation over microbatches (the batch's
+                   rows cut into `accum_steps` equal slices, in order),
+                   the f32 gradients summed from zeros and scaled by
+                   1/accum_steps, as the JAX package's `lax.scan`
+  - compress_pod_grads : the int8 round trip of train/compression.py on
+                   the gradients before the optimizer
+
+Params are the JAX package's tree (models/lm.py); the optimizer is the
+port's `Adam` with its cosine schedule and global-norm clipping. A step's
+gradients come from `torch.autograd.grad` of `lm.loss_fn`. On the card its
+attention forwards launch the flash kernel, and their gradient is the JAX
+package's plain recompute (kernels/attention/ops.py). The step writes the
+update into the params and optimizer state it was given (`Adam.update_`),
+as the JAX launcher donates them to its jitted step (`donate_argnums`): f32
+params, gradients and Adam's mu and nu are held once, 16 bytes a param. It
+runs under the profiler ranges `STAGES`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.utils._pytree import tree_map
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+from repro_torch.train.compression import compress_decompress
+from repro_torch.train.optim import (Adam, AdamState, cosine_schedule,
+                                     global_norm, value_and_grad)
+
+#: `torch.profiler` ranges of a step: the loss and its gradients (the
+#: backward's own ops run on autograd's thread, outside the range), then
+#: the optimizer update
+STAGES = ("train::grads", "train::update")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.01
+    clip_norm: float = 1.0
+    remat: str = "dots"
+    accum_steps: int = 1
+    compress_pod_grads: bool = False
+
+
+def make_optimizer(tc: TrainConfig) -> Adam:
+    return Adam(lr=cosine_schedule(tc.lr, tc.warmup, tc.total_steps),
+                weight_decay=tc.weight_decay, clip_norm=tc.clip_norm)
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch, remat: str = "none"):
+    """(loss, grads in params' tree) of `lm.loss_fn` on `batch`."""
+    return value_and_grad(lambda p: lm.loss_fn(cfg, p, batch, remat=remat),
+                          params)
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics {"loss", "grad_norm" (of the gradients the optimizer is given,
+    before its clipping), "lr" (of this update)}), the update written into
+    `params` and `opt_state`'s mu and nu, which it returns. `batch` holds
+    tensors or arrays ("tokens", "labels", optionally "mask", and "frames"
+    for an encoder-decoder model) and goes to the params' device."""
+    optimizer = make_optimizer(tc)
+
+    def grads_of(params, batch):
+        if tc.accum_steps <= 1:
+            return loss_and_grads(cfg, params, batch, tc.remat)
+        a = tc.accum_steps
+        rows, rest = divmod(next(iter(batch.values())).shape[0], a)
+        if rest:
+            raise ValueError(f"a batch of {rows * a + rest} rows does not "
+                             f"split into {a} microbatches")
+        acc = tree_map(torch.zeros_like, params)
+        total = 0.0
+        for i in range(a):
+            micro = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            loss, grads = loss_and_grads(cfg, params, micro, tc.remat)
+            tree_map(lambda x, g: x.add_(g), acc, grads)
+            total = total + loss
+            del grads
+        inv = 1.0 / a
+        return total * inv, tree_map(lambda x: x * inv, acc)
+
+    def train_step(params, opt_state: AdamState, batch):
+        device = lm.tree_leaves(params)[0].device
+        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        with torch.profiler.record_function(STAGES[0]):
+            loss, grads = grads_of(params, batch)
+            if tc.compress_pod_grads:
+                grads = compress_decompress(grads)
+        metrics = {"loss": loss, "grad_norm": global_norm(grads),
+                   "lr": optimizer._lr(opt_state.step + 1)}
+        with torch.profiler.record_function(STAGES[1]):
+            params, opt_state = optimizer.update_(grads, opt_state, params)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def init_train_state(cfg: ModelConfig, tc: TrainConfig, gen: torch.Generator,
+                     device=None):
+    """(params drawn from `gen` on `device` (the card when None), a fresh
+    `AdamState`)."""
+    params = lm.init_params(cfg, gen, device)
+    return params, make_optimizer(tc).init(params)
+
+
+def state_from_numpy(params_np, opt_np, device):
+    """The JAX package's params and `AdamState(step, mu, nu)`, as numpy
+    (`jax.tree.map(np.asarray, ...)`), to tensors on `device`."""
+    step, mu, nu = opt_np
+    step = torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device)
+    return (lm.params_from_numpy(params_np, device),
+            AdamState(step, lm.params_from_numpy(mu, device),
+                      lm.params_from_numpy(nu, device)))
+
+
+__all__ = ["STAGES", "TrainConfig", "init_train_state", "loss_and_grads",
+           "make_optimizer", "make_train_step", "state_from_numpy"]

@@ -1,9 +1,10 @@
 """The port stands alone: `repro_torch` imports neither JAX nor any module of
 the JAX package `repro`, and runs on the CUDA card unless told otherwise:
 its entry points (`make_vec`, `cairl.make`, the DQN and PPO trainers, the
-fused trainer and fleets, the async, sharded and supervised pools and the
-env service) raise without a card when no device is named; the checkpoint
-manager, the failure harness and `propose_mesh` are host-only."""
+fused trainer and fleets, the async, sharded and supervised pools, the env
+service and the LM training launcher) raise without a card when no device
+is named; the checkpoint manager, the failure harness and `propose_mesh`
+are host-only."""
 import ast
 import os
 import pathlib
@@ -47,7 +48,9 @@ for mod in ("envs.grid.snake", "envs.puzzle", "envs.multitask", "models.lm",
             "rl.ppo", "train.fused", "sustainability.impact",
             "pool.async_pool", "pool.sharded", "runtime.failures",
             "runtime.elastic", "runtime.supervisor", "checkpoint.manager",
-            "serving.env_service", "models.moe", "models.gla", "models.ssm"):
+            "serving.env_service", "models.moe", "models.gla", "models.ssm",
+            "data.synthetic", "train.trainer", "train.compression",
+            "launch.train"):
     assert "repro_torch." + mod in names, mod
 """
 
@@ -81,6 +84,27 @@ def test_make_vec_defaults_to_cuda_and_raises_without_it(monkeypatch):
         repro_torch.make_vec("CartPole-v1", 4)
     pool = repro_torch.make_vec("CartPole-v1", 4, device="cpu")
     assert pool.device == torch.device("cpu") and pool.backend == "torch"
+
+
+def test_lm_training_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """The training launcher and `init_train_state` run on the card unless
+    told otherwise; told the CPU, the launcher trains there."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.train.trainer import TrainConfig, init_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "yi-6b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(get_config("yi-6b", reduced=True), TrainConfig(),
+                         torch.Generator())
+    out = launch_train.main(["--arch", "yi-6b", "--steps", "1", "--batch", "2",
+                             "--seq", "8", "--device", "cpu"])
+    assert out["device"] == torch.device("cpu")
+    assert all(x.device.type == "cpu" for x in
+               lm.tree_leaves(out["params"]))
 
 
 def test_dqn_defaults_to_cuda_and_raises_without_it(monkeypatch):
