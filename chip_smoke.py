@@ -42,6 +42,15 @@ repository around it. Phases, each printing one JSON line with its seconds:
            tokens/s, the prefill's seconds, a decode step's ms, peak
            memory; prefill + decode against forward through the kernel;
            the kernel on the real q, k and v of layers 0 and 61
+  absorbed MLA's absorbed form: the (288, 256) flash instantiation (one
+           KV head, 40 query heads a tile) against attention_ref in bf16
+           and f32 at MiniCPM3-4B's heads (a 2,048-token prompt over 4,096
+           slots, a ragged 37-token prompt, a decode row at 3,000), with
+           kernel, plain and SDPA times and the bound at the prompt and the
+           decode row; then MiniCPM3-4B with mla_absorb=True as phase mla
+           runs it (4,030 flash launches), a decode step's ms beside the
+           naive form's from phase mla, and the two forms' logits on one
+           256-token prompt within bf16's 5e-2
   moe      OLMoE-1B-7B at full width and depth through
            ServeEngine(slots=8, max_seq=4096), phase lm's 16 requests (16
            prefills × 16 layers: 256 flash launches); tokens/s, time to
@@ -67,7 +76,8 @@ repository around it. Phases, each printing one JSON line with its seconds:
            f32), and remat "dots" and "full" against "none" through the
            kernel (within 1e-6); every arch's reduced config, 2 steps on the card against
            the same on the CPU (and accum_steps=2, compress_pod_grads once
-           each); the attention backward (the JAX package's plain
+           each), the reduced MiniCPM3's (24, 16) heads through the kernel
+           zero-padded to (32, 32); the attention backward (the JAX package's plain
            recompute) at danube's training shape against autograd through
            attention_ref, timed beside the kernel's forward and SDPA's
   kernel   the CUDA megastep, which splits each lane's key and runs the
@@ -173,6 +183,14 @@ repository around it. Phases, each printing one JSON line with its seconds:
            and restored, equal to an uninterrupted oracle; a checkpoint
            written from the card restored into a device="cpu" pool, both
            continuing bit for bit on the grid body
+  audit    the port's analysis gates (repro_torch.analysis): the cost
+           model's rows (a JSON line each: every registry id on "vmap" and
+           "cuda", and the three train steps), then the audit of every id ×
+           (vmap, cuda, async, sharded) and the three fused train units:
+           no host sync, no host copy past its budget (the async recv's one
+           `_fetch`), the carry written in place, the async recv's launches
+           equal for ready sets of 1, 2 and 8, the train graphs free of
+           host nodes; raises on any violation
   numbers  env steps/s per id: classic and grid at B = 65,536 (CartPole-v1
            also at B = 4,096), Pong-v0 and Breakout-v0 at B = 4,096, K = 8,
            Multitask-v0 at B = 65,536, Maze-px and FrozenLake-px at 4,096
@@ -251,36 +269,11 @@ CARDS = (("H100 PCIe", 2.0e12, 51e12, 756e12),
          ("H100", 3.35e12, 67e12, 989e12), ("H200", 4.8e12, 67e12, 989e12))
 
 INT32_PER_FP32_FLOP = 0.25
-#: float ops per lane-step of each body with TimeLimit, counted in
-#: csrc/megastep.cu: each add, multiply, divide, compare, select, fabsf,
-#: sinf and cosf is one, the TimeLimit fold included. CartPole's is a
-#: count; the others are lower estimates: the grid and puzzle bodies one
-#: per observation code stored, plus the move, the plane lookups, reward,
-#: done and the TimeLimit fold, Snake four more per cell for its ages;
-#: Acrobot four derivatives of ~30 ops; the rest their step's arithmetic.
-#: Far below the bytes and integer bounds, they decide nothing.
-FLOAT_OPS_PER_LANE_STEP = {"CartPole": 49, "MountainCar": 16, "Pendulum": 24,
-                           "Acrobot": 120, "Pong": 30, "Breakout": 40,
-                           "LightsOut": 37, "FrozenLake": 28, "CliffWalk": 62,
-                           "Maze": 78, "Snake": 200}
-#: int32 ops of one threefry-2x32 block (csrc/megastep.cu: 2 key xors, 2
-#: adds, 20 rounds of add, funnel shift and xor, 5 injections of 3 adds);
-#: every lane-step splits its key (2 blocks), and a lane-step that resets
-#: draws its body's reset (the blocks below, csrc/megastep.cu's header)
-THREEFRY_OPS = 79
-RESET_BLOCKS = {"CartPole": 2, "MountainCar": 1, "Pendulum": 4, "Acrobot": 2,
-                "Pong": 6, "Breakout": 4, "LightsOut": 8, "FrozenLake": 13,
-                "CliffWalk": 30, "Maze": 46, "Snake": 18}
+# The work counts behind each kernel's bound are the package's: each
+# wrapper's `cost` (kernels/envstep/megastep.py, kernels/raster/raster.py,
+# kernels/attention/flash.py), which analysis/cost.py reads too.
 #: the reset-heavy kernel case: a TimeLimit of 3 over K = 32 steps
 HEAVY_MAX_STEPS = 3
-#: float ops of csrc/raster.cu, counted there: per pixel-segment pair (the
-#: coverage, its clips and the running max; sqrtf and each division one
-#: op), per segment staged (dx, dy, the squared length and its clamp) and
-#: per pixel (its centre). The pairs these inputs need are those of
-#: non-zero coverage: a pair of zero coverage cannot raise the max.
-RASTER_OPS_PER_PIXEL_SEGMENT = 25
-RASTER_OPS_PER_SEGMENT = 6
-RASTER_OPS_PER_PIXEL = 4
 
 #: uniform ranges of the classic state rows fed to the kernel check, wide
 #: enough that episodes end, velocities clamp and angles wrap inside K steps
@@ -311,42 +304,20 @@ def card_row(name: str):
     raise RuntimeError(f"no data-sheet rates for {name!r}")
 
 
-def megastep_bytes(b: int, k: int, s: int, o: int) -> int:
-    """Bytes one megastep must move: each input read once, each output
-    written once. s counts the TimeLimit row when there is one; the (B, 2)
-    int64 keys are 4 floats' worth a lane each way."""
-    reads = s + 4 + k                     # state, keys; act
-    writes = s + 4 + k * (2 * o + 3)      # state, keys; obs, tobs, rew,
-    return 4 * b * (reads + writes)       # done, trunc
-
-
-def megastep_ops(name: str, b: int, k: int, resets: int):
-    """(int32 ops, float ops) one megastep must do on these inputs: the key
-    split of every lane-step and the reset of each of the `resets`
-    lane-steps that reset (counted from the kernel's own done output), and
-    the body's float arithmetic."""
-    blocks = 2 * b * k + resets * RESET_BLOCKS[name]
-    return THREEFRY_OPS * blocks, FLOAT_OPS_PER_LANE_STEP[name] * b * k
-
-
 def raster_work(segs, intens, h: int, w: int):
-    """What one raster launch must move and do on these scenes: segments
-    and intensities read once, frames written once; ops over the
-    pixel-segment pairs of non-zero coverage, counted on the scenes' device
-    with the plain version's arithmetic, and (ops_all_pairs) over every
-    pair of a live (nonzero-intensity) segment, the count of earlier
-    versions of this bound."""
+    """What one raster launch must move and do on these scenes
+    (kernels/raster/raster.py::cost): the pixel-segment pairs of non-zero
+    coverage counted on the scenes' device with the plain version's
+    arithmetic, and the live (nonzero-intensity) segments."""
+    from repro_torch.kernels.raster.raster import cost
     from repro_torch.kernels.raster.ref import segment_coverage
 
     n, s = intens.shape
     live = int((intens != 0).sum())
     covered = sum(int((c > 0).sum()) for c in segment_coverage(segs, intens,
                                                                 h, w))
-    rest = n * s * RASTER_OPS_PER_SEGMENT + n * h * w * RASTER_OPS_PER_PIXEL
-    return {"bytes": 4 * (n * s * 6 + n * h * w),
-            "ops": covered * RASTER_OPS_PER_PIXEL_SEGMENT + rest,
-            "ops_all_pairs": live * h * w * RASTER_OPS_PER_PIXEL_SEGMENT + rest,
-            "covered_pairs": covered, "live_segments": live}
+    return {**cost(n, s, h, w, covered, live), "covered_pairs": covered,
+            "live_segments": live}
 
 
 def bound(bytes_moved, ops, bw, flops, int_ops=0):
@@ -2658,6 +2629,70 @@ def phase_runtime(torch, device):
     return launches
 
 
+#: envs (slots) of each audited pool
+AUDIT_BATCH = 8
+
+
+def phase_audit(torch, device):
+    """The port's analysis gates on the card (repro_torch.analysis): the
+    cost model over every registry id on the "vmap" and "cuda" paths and
+    the GOLDEN_TRAIN_IDS train steps (a JSON line a row), then the audit
+    over every id × ("vmap", "cuda", "async", "sharded") and the three
+    train units: each step with host syncs raising and the dispatcher
+    watching its copies, the carry written in place, the async launches
+    across ready sets, the train graphs free of host nodes. Raises on any
+    violation, on an unexpected refusal, or on a missing row. Its launches
+    are checks, not the main path's: uncounted."""
+    from repro_torch.analysis import audit, cost
+    from repro_torch.core.registry import registered
+    from repro_torch.train.fused import GOLDEN_TRAIN_IDS
+
+    t0 = time.perf_counter()
+    keys = ("id", "backend", "status", "flops_per_step", "bytes_per_step",
+            "peak_live_bytes", "arithmetic_intensity", "refusal")
+    with uncounted():
+        costs = cost.run(device=device, batch=AUDIT_BATCH, smoke=True,
+                         progress=lambda r: emit({"cost_row": {
+                             **{k: r.get(k) for k in keys},
+                             "roofline_bound_s": (r.get("roofline") or {})
+                             .get("bound_s"),
+                             "kernels": {k: v.get("launches") for k, v in
+                                         (r.get("kernels") or {}).items()}}}))
+        t1 = time.perf_counter()
+        report = audit.run(device=device, batch=AUDIT_BATCH, smoke=True)
+    rows = report["rows"]
+    want_cells = len(registered()) * len(audit.BACKENDS) + len(GOLDEN_TRAIN_IDS)
+    refusals = {}
+    for r in rows:
+        if r["status"] == "refused":
+            refusals.setdefault(r["refusal"], []).append(
+                f"{r['id']}×{r['backend']}")
+    train = {r["id"]: {k: r.get(k) for k in (
+        "status", "graph_nodes", "node_types", "host_transfer_ops",
+        "moved_leaves", "carry_leaves", "leaves_written")}
+        for r in rows if r["backend"] == audit.TRAIN_BACKEND}
+    out = {"phase": "audit", "seconds": time.perf_counter() - t0,
+           "cost_seconds": t1 - t0, "audit_seconds": time.perf_counter() - t1,
+           "summary": report["summary"], "cells": len(rows),
+           "want_cells": want_cells, "refusals": refusals, "train": train,
+           "async_launches": {r["id"]: r["launches_by_ready_set"]
+                              for r in rows if "launches_by_ready_set" in r},
+           "host_copies": sorted({c for r in rows
+                                  for c in r.get("host_copies", ())}),
+           "cost_summary": costs["summary"],
+           "violations": report["violations"]}
+    emit(out)
+    bad = (report["violations"] or len(rows) != want_cells
+           or costs["summary"]["unexpected_refusals"]
+           or any(t["status"] != "ok" for t in train.values()))
+    if bad:
+        raise AssertionError(f"audit: {out['violations'][:10]}, "
+                             f"{len(rows)} of {want_cells} cells, cost "
+                             f"refusals {costs['summary']['unexpected_refusals']}"
+                             f", train {train}")
+    return out
+
+
 def phase_numbers(device, pools, vmap_pools, sync):
     import repro_torch
     from repro_torch import random as R
@@ -2785,6 +2820,7 @@ def phase_bodies(torch, device, pools, sync, numbers, bw, flops):
     from repro_torch import random as R
     from repro_torch.core.spaces import sample_batch
     from repro_torch.kernels.envstep import megastep_cuda
+    from repro_torch.kernels.envstep.megastep import cost as megastep_cost
 
     t0 = time.perf_counter()
     key = R.PRNGKey(3, device)
@@ -2810,8 +2846,9 @@ def phase_bodies(torch, device, pools, sync, numbers, bw, flops):
         worst = max(worst, err)
         resets = int(got[5].sum())
         sp = spec.state_size + (0 if max_steps is None else 1)
-        nbytes = megastep_bytes(b, k, sp, spec.obs_size)
-        int_ops, float_ops = megastep_ops(spec.name, b, k, resets)
+        work = megastep_cost(spec.name, b, k, sp, spec.obs_size, resets)
+        nbytes, int_ops, float_ops = (work["bytes"], work["int_ops"],
+                                      work["float_ops"])
         bound_ms, bound_by = bound(nbytes, float_ops, bw, flops, int_ops)
         steps = torch.arange(1, k + 1, device=device)
         bodies[spec.name] = {
@@ -3006,19 +3043,13 @@ MOE_F32_L = 7
 
 
 def attention_work(b, heads, lq, lk, causal, window, q_offset, itemsize):
-    """(live query-key pairs, bytes, flops) of one attention call: each
-    row's visible keys counted, Q, O and the live K and V moved once,
-    2·(D + Dv) flops a live pair (q·k and p·v)."""
-    import numpy as np
+    """(live query-key pairs, bytes, flops) of one attention call
+    (kernels/attention/flash.py::cost): each row's visible keys counted, Q,
+    O and the live K and V moved once, 2·(D + Dv) flops a live pair."""
+    from repro_torch.kernels.attention.flash import cost
 
-    hq, hkv, d, dv = heads
-    qpos = q_offset + np.arange(lq, dtype=np.int64)
-    hi = np.minimum(lk, qpos + 1) if causal else np.full(lq, lk)
-    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(lq, np.int64)
-    pairs = int(np.maximum(hi - lo, 0).sum())
-    live_keys = max(0, int(hi.max()) - int(lo.min()))
-    moved = itemsize * (d + dv) * b * (hq * lq + hkv * live_keys)
-    return pairs * b * hq, moved, 2 * (d + dv) * pairs * b * hq
+    c = cost(b, heads, lq, lk, causal, window, q_offset, itemsize)
+    return c["live_pairs"], c["bytes"], c["flops"]
 
 
 def attention_inputs(torch, heads, b, lq, lk, dtype, seed, device):
@@ -3064,24 +3095,27 @@ def attention_check(torch, q, k, v, what, **kw):
     return out
 
 
-def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
-    """The CUDA flash attention against attention_ref at the LM paths'
-    shapes; kernel, plain and SDPA times and the bound at the timed cases
-    (the window's in bf16 only). Returns (worst error, {timed name: its
-    bf16 case})."""
+def attention_cases(torch, device, table, bw, fp32_flops, bf16_flops,
+                    seed0=0):
+    """Each case of `table` (ATTN_CASES' layout) in bf16 and f32: the kernel
+    against attention_ref (attention_check), and at the timed cases the
+    kernel, plain and library times beside the bound (the window's in bf16
+    only). SDPA is the library call where it computes the same function: at
+    q_offset 0 (its is_causal mask is top-left aligned) and, for a causal
+    decode row, non-causal over the keys the row sees. Returns (cases, worst
+    error, {timed name: its bf16 case})."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import attention_ref, flash_attention_cuda
 
-    t0 = time.perf_counter()
     cases, worst, timed_bf16 = [], 0.0, {}
     with uncounted():
         for i, (what, heads, b, lq, lk, causal, window, q_offset,
-                timed_as) in enumerate(ATTN_CASES):
+                timed_as) in enumerate(table):
             for dtype in (torch.bfloat16, torch.float32):
                 name = str(dtype).split(".")[-1]
-                q, k, v = attention_inputs(torch, heads, b, lq, lk, dtype, i,
-                                           device)
+                q, k, v = attention_inputs(torch, heads, b, lq, lk, dtype,
+                                           seed0 + i, device)
                 kw = dict(causal=causal, window=window, q_offset=q_offset)
                 checked = attention_check(torch, q, k, v, what, **kw)
                 worst = max(worst, checked["max_abs_err"])
@@ -3103,12 +3137,20 @@ def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
                             q, k, v, **kw), 20),
                         plain_ms=event_ms(torch, lambda: attention_ref(
                             q, k, v, **kw), 3, warmup=1))
+                    sdpa = None
                     if q_offset == 0 and (not window or window >= lk):
                         # is_causal is top-left aligned: key j <= row i, the
                         # same mask as q_offset 0 (and as a window no
                         # shorter than the keys)
                         sdpa = lambda: F.scaled_dot_product_attention(
                             q, k, v, is_causal=causal, enable_gqa=True)
+                    elif lq == 1 and causal and not window:
+                        # one decode row sees keys 0..q_offset, all of them
+                        seen = min(lk, q_offset + 1)
+                        ks, vs = k[:, :, :seen], v[:, :, :seen]
+                        sdpa = lambda: F.scaled_dot_product_attention(
+                            q, ks, vs, enable_gqa=True)
+                    if sdpa is not None:
                         case["library"] = ("torch.nn.functional."
                                            "scaled_dot_product_attention")
                         case["library_ms"] = event_ms(torch, sdpa, 20)
@@ -3120,6 +3162,17 @@ def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
                 cases.append(case)
                 del q, k, v
     torch.cuda.empty_cache()
+    return cases, worst, timed_bf16
+
+
+def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
+    """The CUDA flash attention against attention_ref at the LM paths'
+    shapes; kernel, plain and SDPA times and the bound at the timed cases
+    (the window's in bf16 only). Returns (worst error, {timed name: its
+    bf16 case})."""
+    t0 = time.perf_counter()
+    cases, worst, timed_bf16 = attention_cases(torch, device, ATTN_CASES, bw,
+                                               fp32_flops, bf16_flops)
     emit({"phase": "attention", "seconds": time.perf_counter() - t0,
           "cases": cases, "clock": "CUDA events: kernel and SDPA over 20 "
           "launches, plain over 3", "rates": {"bytes_per_s": bw,
@@ -3680,6 +3733,48 @@ def phase_mla(torch, device):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (MLA_BATCH, MLA_PROMPT))).to(device)
 
+    out["run"] = mla_decode_run(torch, lm, cfg, eparams, toks)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    errs = []
+    with uncounted():
+        out["decode_matches_forward"] = check_decode_vs_forward(
+            torch, lm, cfg, eparams, toks[:1, :INVARIANT_L + 1].long())
+        real = real_layer_checks(torch, lm, cfg, eparams, toks[:1])
+        errs += [c["max_abs_err"] for c in real.values()]
+    out["real_layer_checks"] = real
+    del eparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return max(errs), out
+
+
+#: MiniCPM3-4B's absorbed MLA attention: 40 query heads over the one
+#: latent KV head, q and k of kv_lora_rank + rope = 288, v of kv_lora_rank
+#: = 256 (models/attention.py::mla_apply with cfg.mla_absorb)
+ABSORBED_HEADS = (40, 1, 288, 256)
+#: its cases, ATTN_CASES' layout: the prefill (the kernels line's
+#: absorbed_heads), a ragged prompt and a decode row (absorbed_decode)
+ABSORBED_CASES = (
+    ("causal over a full cache", ABSORBED_HEADS, 1, 2048, 4096, True, 0, 0,
+     "absorbed"),
+    ("ragged prompt", ABSORBED_HEADS, 1, 37, 4096, True, 0, 0, None),
+    ("decode", ABSORBED_HEADS, 1, 1, 4096, True, 0, 3000, "absorbed_decode"),
+)
+#: prompt length of the absorbed-against-naive logits check
+ABSORBED_CHECK_L = 256
+
+
+def mla_decode_run(torch, lm, cfg, eparams, toks):
+    """lm.prefill of `toks` into a SERVE_MAX_SEQ cache, then MLA_DECODES
+    greedy lm.decode_step calls at a scalar position, with the launch
+    counts set to 0 just before the prefill and read just after the last
+    step; raises unless it launched exactly one flash kernel a layer per
+    prefill and per step, and on non-finite logits or tokens out of the
+    vocabulary. Host-clock times, each part ending in a synchronize."""
     with uncounted():  # warm cuBLAS and the kernel's library
         logits, caches = lm.prefill(cfg, eparams,
                                     {"tokens": toks[:, :PROMPT_LENS[0]]},
@@ -3698,9 +3793,9 @@ def phase_mla(torch, device):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     generated = [tok]
+    prompt = toks.shape[1]
     for step in range(MLA_DECODES):
-        lg, caches = lm.decode_step(cfg, eparams, caches, tok,
-                                    MLA_PROMPT + step)
+        lg, caches = lm.decode_step(cfg, eparams, caches, tok, prompt + step)
         tok = lg.argmax(-1).to(torch.int32)[:, None]
         generated.append(tok)
     torch.cuda.synchronize()
@@ -3709,39 +3804,86 @@ def phase_mla(torch, device):
     want = {"megastep": 0, "raster": 0,
             "flash": cfg.num_layers * (1 + MLA_DECODES)}
     if launches != want:
-        raise AssertionError(f"minicpm3-4b: launches {launches}, want {want}")
+        raise AssertionError(f"{cfg.name} (mla_absorb={cfg.mla_absorb}): "
+                             f"launches {launches}, want {want}")
     generated = torch.cat(generated, dim=1)
     if not (bool(torch.isfinite(lg).all()) and bool(
             ((generated >= 0) & (generated < cfg.vocab_size)).all())):
-        raise AssertionError("minicpm3-4b: non-finite logits or tokens out "
+        raise AssertionError(f"{cfg.name}: non-finite logits or tokens out "
                              "of the vocabulary")
-    out["run"] = {
-        "batch": MLA_BATCH, "prompt": MLA_PROMPT, "max_seq": SERVE_MAX_SEQ,
+    run = {
+        "mla_absorb": cfg.mla_absorb, "batch": toks.shape[0],
+        "prompt": prompt, "max_seq": SERVE_MAX_SEQ,
         "decode_steps": MLA_DECODES, "generated_tokens": generated.numel(),
         "seconds": t3 - t1, "prefill_s": t2 - t1,
         "decode_step_ms": 1e3 * (t3 - t2) / MLA_DECODES,
         "tokens_per_s": generated.numel() / (t3 - t1),
-        "decode_tokens_per_s": MLA_BATCH * MLA_DECODES / (t3 - t2),
+        "decode_tokens_per_s": toks.shape[0] * MLA_DECODES / (t3 - t2),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
         "clock": "host clock; prefill and decode each end in a synchronize"}
     del logits, lg, caches
+    return run
+
+
+def phase_absorbed(torch, device, bw, fp32_flops, bf16_flops,
+                   naive_decode_ms=None):
+    """MLA's absorbed form. The (288, 256) flash instantiation against
+    attention_ref at MiniCPM3-4B's heads (ABSORBED_CASES, bf16 and f32),
+    with kernel, plain and SDPA times beside the bound; then MiniCPM3-4B at
+    full width and depth with mla_absorb=True (random params from the seed
+    of phase mla): MLA_BATCH prompts of MLA_PROMPT tokens and MLA_DECODES
+    decode steps through the kernel with exact launch counts, the decode
+    step's time beside the naive form's (`naive_decode_ms`, phase mla of
+    the same run); the absorbed logits against the naive form's on one
+    prompt. Returns (worst kernel error, out)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    cases, worst, timed_bf16 = attention_cases(
+        torch, device, ABSORBED_CASES, bw, fp32_flops, bf16_flops, seed0=100)
+    out = {"phase": "absorbed", "cases": cases, "timed": timed_bf16,
+           "kernel_s": time.perf_counter() - t0}
+
+    naive = get_config("minicpm3-4b")
+    cfg = dataclasses.replace(naive, mla_absorb=True)
+    params = lm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(LM_SEED), device)
+    eparams = lm.compute_params(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(LM_SEED + 2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (MLA_BATCH, MLA_PROMPT))).to(device)
+    out["run"] = mla_decode_run(torch, lm, cfg, eparams, toks)
+    out["run"]["naive_decode_step_ms"] = naive_decode_ms
     gc.collect()
     torch.cuda.empty_cache()
 
-    errs = []
-    with uncounted():
-        out["decode_matches_forward"] = check_decode_vs_forward(
-            torch, lm, cfg, eparams, toks[:1, :INVARIANT_L + 1].long())
-        real = real_layer_checks(torch, lm, cfg, eparams, toks[:1])
-        errs += [c["max_abs_err"] for c in real.values()]
-    out["real_layer_checks"] = real
-    del eparams
+    # the two forms compute one function: their logits on one prompt
+    with uncounted(), torch.no_grad():
+        short = {"tokens": toks[:1, :ABSORBED_CHECK_L]}
+        got, _ = lm.prefill(cfg, eparams, short, SERVE_MAX_SEQ)
+        ref, _ = lm.prefill(naive, eparams, short, SERVE_MAX_SEQ)
+    out["absorbed_vs_naive_logits"] = {
+        **logit_errors(got, ref), "L": ABSORBED_CHECK_L,
+        "bf16_rel_l2_tol": BF16_LOGIT_REL}
+    if not out["absorbed_vs_naive_logits"]["rel_l2"] <= BF16_LOGIT_REL:
+        raise AssertionError(f"minicpm3-4b absorbed != naive: "
+                             f"{out['absorbed_vs_naive_logits']}")
+    del eparams, got, ref
     gc.collect()
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     emit(out)
-    return max(errs), out
+    return worst, out
 
 
 def phase_moe(torch, device):
@@ -4103,11 +4245,12 @@ def tree_rel_err(torch, got, want):
 def train_on_both(torch, device, arch, tc):
     """ARCH_STEPS steps of `arch`'s reduced config from the same params on
     the CPU and on the card; the card's flash launches; raises past
-    ARCH_REL. MLA heads the kernel has no instantiation for (flash.HEAD_DIMS;
-    the reduced MiniCPM3's (24, 16)) run the plain attention on the card."""
+    ARCH_REL, or where zero-padded heads launched no flash kernel. Head
+    dims the kernel has no instantiation for (the reduced MiniCPM3's
+    MLA heads, (24, 16)) reach it zero-padded (ops.padded_pair)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import DataConfig
-    from repro_torch.kernels.attention.flash import HEAD_DIMS
+    from repro_torch.kernels.attention import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.models import lm
     from repro_torch.train import trainer
@@ -4115,7 +4258,7 @@ def train_on_both(torch, device, arch, tc):
     cfg = get_config(arch, reduced=True)
     heads = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
              if cfg.kv_lora_rank else (cfg.hd, cfg.hd))
-    plain = heads not in HEAD_DIMS
+    pad = ops.padded_pair(*heads)
     params = lm.init_params(cfg, torch.Generator().manual_seed(LM_SEED), "cpu")
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=ARCH_SEQ,
                     global_batch=ARCH_BATCH)
@@ -4127,12 +4270,9 @@ def train_on_both(torch, device, arch, tc):
         step = trainer.make_train_step(cfg, tc)
         metrics = []
         before = read_counts()["flash"]
-        route = (captured_attention(set(), "torch") if plain and dev.type == "cuda"
-                 else contextlib.nullcontext())
-        with route:
-            for batch in batches:
-                p, opt, m = step(p, opt, {k: v.to(dev) for k, v in batch.items()})
-                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        for batch in batches:
+            p, opt, m = step(p, opt, {k: v.to(dev) for k, v in batch.items()})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
         runs[dev.type] = (metrics, p, read_counts()["flash"] - before)
     (cpu_m, cpu_p, _), (card_m, card_p, flash) = runs["cpu"], runs["cuda"]
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
@@ -4141,12 +4281,12 @@ def train_on_both(torch, device, arch, tc):
            "grad_norm_rel_err": max(rel(a[1], b[1]) for a, b in zip(card_m, cpu_m)),
            "params_rel_err": tree_rel_err(torch, lm.tree_map(lambda x: x.cpu(), card_p),
                                           cpu_p)[0],
-           "flash_launches": flash, "attention": "plain (no kernel for the "
-           f"reduced heads {heads})" if plain else "flash kernel",
+           "flash_launches": flash, "attention": f"flash kernel, {heads} "
+           f"zero-padded to {pad}" if pad else "flash kernel",
            "tol": ARCH_REL}
     if not all(math.isfinite(m[0]) for m in card_m) or max(
             out["loss_rel_err"], out["grad_norm_rel_err"],
-            out["params_rel_err"]) > ARCH_REL:
+            out["params_rel_err"]) > ARCH_REL or (pad and not flash):
         raise AssertionError(f"{arch} train steps, card against CPU: {out}")
     return out
 
@@ -4509,13 +4649,17 @@ def main() -> int:
     flash = timed_flash["lm"]
     lm_err, lm_out = phase_lm(torch, device)
     mla_err, mla_out = phase_mla(torch, device)
+    absorbed_err, absorbed_out = phase_absorbed(
+        torch, device, bw, flops, bf16_flops, mla_out["run"]["decode_step_ms"])
     moe_err, moe_out = phase_moe(torch, device)
     ssm_err, ssm_out = phase_ssm(torch, device)
     whisper_err, whisper_out = phase_whisper(torch, device)
     train_out = phase_lm_train(torch, device, bw, flops, bf16_flops)
-    flash_err = max(flash_err, lm_err, mla_err, moe_err, ssm_err, whisper_err)
+    flash_err = max(flash_err, lm_err, mla_err, absorbed_err, moe_err, ssm_err,
+                    whisper_err)
     flash_paths = {"lm": lm_out["serve"]["launches"]["flash"],
                    "mla": mla_out["run"]["launches"]["flash"],
+                   "absorbed": absorbed_out["run"]["launches"]["flash"],
                    "moe": moe_out["serve"]["launches"]["flash"],
                    "ssm": sum(ssm_out[a]["serve"]["launches"]["flash"]
                               for a in SSM_ARCHS),
@@ -4537,6 +4681,7 @@ def main() -> int:
     async_launches, async_err = phase_async(torch, device)
     mega_err = max(mega_err, async_err)
     runtime_launches = phase_runtime(torch, device)
+    phase_audit(torch, device)
     numbers = phase_numbers(device, pools, vmap_pools, sync)
     del vmap_pools
     bodies, bodies_err, memory = phase_bodies(torch, device, pools, sync,
@@ -4637,6 +4782,9 @@ def main() -> int:
                                         "Lk", "causal", "live_pairs", "bytes",
                                         "flops")},
         "minicpm3_heads": heads_row(timed_flash["mla"]),
+        "absorbed_heads": heads_row(absorbed_out["timed"]["absorbed"]),
+        "absorbed_decode": heads_row(absorbed_out["timed"]["absorbed_decode"]),
+        "absorbed_max_abs_err": absorbed_err,
         "whisper_heads": heads_row(timed_flash["whisper"]),
         "danube_train_heads": heads_row(timed_flash["train"]),
         "card": smi,

@@ -5,19 +5,21 @@ Every assigned arch ships:
   - `full()`    : the exact published configuration.
   - `reduced()` : same family/pattern, tiny dims, for the CPU tests.
 
-`get_config` works for every arch. The port builds models of the block
-kinds "full" and "swa" so far; `models/lm.py::init_params` names the
-ROADMAP item for the others. `input_specs` (ShapeDtypeStructs for the JAX
-dry run) has no counterpart here yet (ROADMAP A14).
+`get_config` works for every arch. `input_specs(cfg, shape)` gives the
+inputs of one (train | prefill | decode) step as tensors on the "meta"
+device: shapes and dtypes, no memory (the dry run's stand-ins, as the JAX
+package's ShapeDtypeStructs are).
 
 Skips: long_500k for pure full-attention archs.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Optional
+from typing import Dict, Optional
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig, shape_by_name
 
 ARCH_IDS = (
     "yi-6b",
@@ -61,4 +63,26 @@ def cell_supported(arch: str, shape_name: str) -> Optional[str]:
     return None
 
 
-__all__ = ["ARCH_IDS", "LONG_CONTEXT_OK", "cell_supported", "get_config"]
+def input_specs(cfg: ModelConfig, shape: ShapeConfig | str,
+                max_seq: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Meta-device stand-ins for one step's model inputs (no memory)."""
+    if isinstance(shape, str):
+        shape = shape_by_name(shape)
+    b, l = shape.global_batch, shape.seq_len
+    meta = lambda dims, dtype: torch.empty(dims, dtype=dtype, device="meta")
+    frames = ({"frames": meta((b, cfg.encoder_len, cfg.d_model),
+                              torch.bfloat16)}
+              if cfg.is_encoder_decoder else {})
+    if shape.kind == "train":
+        return {"tokens": meta((b, l), torch.int32),
+                "labels": meta((b, l), torch.int32), **frames}
+    if shape.kind == "prefill":
+        return {"tokens": meta((b, l), torch.int32), **frames}
+    if shape.kind == "decode":
+        # one new token against a seq_len-deep cache
+        return {"tokens": meta((b, 1), torch.int32)}
+    raise ValueError(shape.kind)
+
+
+__all__ = ["ARCH_IDS", "LONG_CONTEXT_OK", "cell_supported", "get_config",
+           "input_specs"]

@@ -113,6 +113,7 @@ def rollout_random_fast(env: Env, key: torch.Tensor, num_steps: int,
     eps = torch.zeros(batch_size, dtype=torch.int32, device=key.device)
     for i in range(1, num_steps + 1):
         k = R.fold_in(key, i)
+        # repro: allow[key-reuse] the pools' chain: the action draw and the step share the step key, so runner and pool rollouts stay comparable
         ts = venv.step(state, sample_batch(env.action_space, k, batch_size), k)
         state = ts.state
         if render:

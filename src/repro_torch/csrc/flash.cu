@@ -61,6 +61,21 @@
 // column pairs for P·V. At D = 128: 168 registers, 87 KB of shared memory,
 // two blocks an SM; at (96, 64) 57 KB.
 //
+// MLA's absorbed form, (D, Dv) = (288, 256) with one KV head for all 40
+// query heads (MiniCPM3-4B: q and k of kv_lora_rank + rope, v of
+// kv_lora_rank), is the same two kernels instantiated at that pair, with
+// the tile rows taken across heads: a block takes G = Hq / Hkv query heads
+// of its KV head, its 64 rows position-major and heads inner (row r is
+// position r / G of head r % G: grouped_row), so a decode step (Lq = 1)
+// puts all 40 heads in one tile and reads the latent once, not 40 times,
+// and a prompt's tiles span 64 / G positions each. The other pairs take G
+// = 1: one head a tile, as before. The bf16 tiles stay at 64 rows: the
+// query tile and the two-stage K and V ring are 177 KB (3 × 64 × 296 × 2 +
+// 2 × 64 × 264 × 2 bytes) of the block's 227 KB, one block an SM, and the
+// Dv-256 accumulator is 128 floats a thread (ptxas: 255 registers, 68 bytes
+// spilled, on the first build); the f32 kernel's Q, K-or-V and P buffers
+// are 162.5 KB (254 registers, no spill).
+//
 // Numbers of the bf16 path. A single bf16 P rounds each probability by up
 // to 2^-9 relative, which moves the f32 output across a bf16 rounding
 // boundary for a large share of outputs (the CPU emulation in
@@ -111,6 +126,16 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
+// Tile row r of a block that takes G query heads of one KV head together:
+// the rows are position-major, heads inner (r = i·G + h_local), so a tile of
+// 64 rows spans 64 / G positions and a decode step (Lq = 1) puts all G heads
+// in one tile, which reads K and V once. Returns the row's offset from
+// (b, h0, 0) in rows of q and o: h_local·Lq + i. G = 1 is one head a tile.
+__device__ __forceinline__ size_t grouped_row(int r, int G, int Lq) {
+  const int i = r / G;
+  return (size_t)(r - i * G) * Lq + i;
+}
+
 template <int D, int DV>
 constexpr size_t smem_bytes() {
   // query tile (D × kPad) + one K-or-V tile (max(D, DV) × kPad: K is D ×
@@ -122,7 +147,8 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv,
-             int Lq, int Lk, int causal, int window, int q_offset, float scale) {
+             int Lq, int Lk, int causal, int window, int q_offset, float scale,
+             int G) {
   static_assert(D % 16 == 0 && DV % 16 == 0,
                 "head dims must be multiples of 16");
   constexpr int kCols = DV / 16;  // output columns per thread
@@ -132,28 +158,30 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* kv = qs + D * kPad;      // [D][kPad]: K tile, transposed; then V [kBK][DV]
   float* ps = kv + kKV * kPad;    // [kBQ][kPad]: probabilities
 
-  const int nq = (Lq + kBQ - 1) / kBQ;
+  // tile rows are the G·Lq rows of G query heads (grouped_row)
+  const int nv = G * Lq;
+  const int nq = (nv + kBQ - 1) / kBQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const float* qg = q + ((size_t)b * Hq + h) * Lq * D;
+  const int h0 = blockIdx.y * G, b = blockIdx.z;
+  const int hk = h0 / (Hq / Hkv);
+  const size_t row0 = ((size_t)b * Hq + h0) * Lq;   // (b, h0, 0)
   const float* kg = k + ((size_t)b * Hkv + hk) * Lk * D;
   const float* vg = v + ((size_t)b * Hkv + hk) * Lk * DV;
-  float* og = o + ((size_t)b * Hq + h) * Lq * DV;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, d = idx - r * D;
-    qs[d * kPad + r] = q0 + r < Lq ? qg[(size_t)(q0 + r) * D + d] : 0.0f;
+    qs[d * kPad + r] = q0 + r < nv
+        ? q[(row0 + grouped_row(q0 + r, G, Lq)) * D + d] : 0.0f;
   }
 
   // keys any row of this tile can see: [k_lo, k_hi)
-  const int last_row = min(q0 + kBQ, Lq) - 1;
+  const int pos_first = q0 / G, pos_last = (min(q0 + kBQ, nv) - 1) / G;
   int k_lo = 0, k_hi = Lk;
-  if (causal) k_hi = min(Lk, q_offset + last_row + 1);
-  if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
+  if (causal) k_hi = min(Lk, q_offset + pos_last + 1);
+  if (window > 0) k_lo = max(0, q_offset + pos_first - window + 1);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -196,7 +224,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
-      const int qpos = q_offset + q0 + r;
+      const int qpos = q_offset + (q0 + r) / G;
       bool ok[4];
       float mx = kNeg;
 #pragma unroll
@@ -253,11 +281,11 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
-    if (r >= Lq) continue;
+    if (r >= nv) continue;
     const float denom = fmaxf(l[i], 1e-20f);
+    float* orow = o + (row0 + grouped_row(r, G, Lq)) * DV;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      og[(size_t)r * DV + tx + 16 * j] = acc[i][j] / denom;
+    for (int j = 0; j < kCols; ++j) orow[tx + 16 * j] = acc[i][j] / denom;
   }
 }
 
@@ -351,13 +379,33 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
   }
 }
 
+// tile rows [r0, r0 + 64) of the G·Lq query rows that start at src (the
+// rows of G heads, grouped_row), into a padded shared tile; rows at or
+// past nv are zero
+template <int W>
+__device__ __forceinline__ void load_q_tile(uint32_t dst, const __nv_bfloat16* src,
+                                            int r0, int nv, int G, int Lq) {
+  constexpr int kChunks = W / 8;     // 16-byte chunks per row
+  static_assert(kBK * kChunks % kTcThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < kBK * kChunks / kTcThreads; ++i) {
+    const int c = threadIdx.x + i * kTcThreads;
+    const int r = c / kChunks, ch = c - r * kChunks;
+    const bool in = r0 + r < nv;
+    cp_async16(dst + (r * Bf16Tile<W>::kStride + ch * 8) * 2,
+               src + (in ? grouped_row(r0 + r, G, Lq) : 0) * W + ch * 8,
+               in ? 16 : 0);
+  }
+}
+
 template <int D, int DV>
 __global__ void __launch_bounds__(kTcThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Lq,
-                  int Lk, int causal, int window, int q_offset, float scale) {
+                  int Lk, int causal, int window, int q_offset, float scale,
+                  int G) {
   static_assert(D % 16 == 0 && DV % 16 == 0,
                 "head dims must be multiples of 16");
   constexpr int kStride = Bf16Tile<D>::kStride;     // Q and K rows
@@ -373,29 +421,30 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     return q_tile + 3 * kTileBytes + st * Bf16Tile<DV>::kBytes;
   };
 
-  const int nq = (Lq + kBQ - 1) / kBQ;
+  // tile rows are the G·Lq rows of G query heads (grouped_row)
+  const int nv = G * Lq;
+  const int nq = (nv + kBQ - 1) / kBQ;
   const int q0 = (nq - 1 - (int)blockIdx.y) * kBQ;
-  const int h = blockIdx.x, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const __nv_bfloat16* qg = q + ((size_t)b * Hq + h) * Lq * D;
+  const int h0 = blockIdx.x * G, b = blockIdx.z;
+  const int hk = h0 / (Hq / Hkv);
+  const size_t row0 = ((size_t)b * Hq + h0) * Lq;   // (b, h0, 0)
   const __nv_bfloat16* kg = k + ((size_t)b * Hkv + hk) * Lk * D;
   const __nv_bfloat16* vg = v + ((size_t)b * Hkv + hk) * Lk * DV;
-  __nv_bfloat16* og = o + ((size_t)b * Hq + h) * Lq * DV;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;      // fragment row and column pair
   const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: matrix, its row
 
   // keys any row of this tile can see: [k_lo, k_hi), whole tiles from k_first
-  const int last_row = min(q0 + kBQ, Lq) - 1;
+  const int pos_first = q0 / G, pos_last = (min(q0 + kBQ, nv) - 1) / G;
   int k_lo = 0, k_hi = Lk;
-  if (causal) k_hi = min(Lk, q_offset + last_row + 1);
-  if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
+  if (causal) k_hi = min(Lk, q_offset + pos_last + 1);
+  if (window > 0) k_lo = max(0, q_offset + pos_first - window + 1);
   const int k_first = (k_lo / kBK) * kBK;
   const int n_tiles = k_hi > k_first ? (k_hi - k_first + kBK - 1) / kBK : 0;
 
   // the query tile and the first K and V tiles: one group
-  load_tile<D>(q_tile, qg, q0, Lq);
+  load_q_tile<D>(q_tile, q + row0 * D, q0, nv, G, Lq);
   if (n_tiles > 0) {
     load_tile<D>(k_stage(0), kg, k_first, Lk);
     load_tile<DV>(v_stage(0), vg, k_first, Lk);
@@ -404,8 +453,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   // this thread's rows: tile rows warp·16 + g and + 8; e = 0, 1 -> the
   // first, e = 2, 3 -> the second of an accumulator fragment
-  const int qpos0 = q_offset + q0 + warp * 16 + g;
-  const bool warp_live = q0 + warp * 16 < Lq;
+  const int qpos[2] = {q_offset + (q0 + warp * 16 + g) / G,
+                       q_offset + (q0 + warp * 16 + g + 8) / G};
+  const bool warp_live = q0 + warp * 16 < nv;
   // scores are kept in base 2: s·scale·log2(e), so p = exp2(s - m)
   const float scale2 = scale * 1.4426950408889634f;
   float m_run[2] = {kNeg, kNeg}, l_run[2] = {0.0f, 0.0f};
@@ -450,8 +500,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
       // scale and mask; a tile every key of which every row sees needs no mask
       const bool full = k0 + kBK <= Lk &&
-                        (!causal || k0 + kBK - 1 <= q_offset + q0) &&
-                        (window <= 0 || k0 > q_offset + q0 + kBQ - 1 - window);
+                        (!causal || k0 + kBK - 1 <= q_offset + pos_first) &&
+                        (window <= 0 || k0 > q_offset + pos_last - window);
       uint32_t ok = 0xffffffffu;   // bit 4j + e: s[j][e] is visible
       float mx[2] = {kNeg, kNeg};
 #pragma unroll
@@ -460,9 +510,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           if (!full) {
             const int kpos = k0 + j * 8 + 2 * t4 + (e & 1);
-            const int qpos = qpos0 + 8 * (e >> 1);
-            const bool vis = kpos < Lk && (!causal || kpos <= qpos) &&
-                             (window <= 0 || kpos > qpos - window);
+            const int qp = qpos[e >> 1];
+            const bool vis = kpos < Lk && (!causal || kpos <= qp) &&
+                             (window <= 0 || kpos > qp - window);
             if (!vis) ok &= ~(1u << (4 * j + e));
           }
           s[j][e] = (ok >> (4 * j + e)) & 1u ? s[j][e] * scale2 : kNeg;
@@ -527,9 +577,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= Lq) continue;
+    if (row >= nv) continue;
     const float denom = fmaxf(l, 1e-20f);
-    uint32_t* out = reinterpret_cast<uint32_t*>(og + (size_t)row * DV + 2 * t4);
+    uint32_t* out = reinterpret_cast<uint32_t*>(
+        o + (row0 + grouped_row(row, G, Lq)) * DV + 2 * t4);
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
       out[j * 4] = pack_bf16(acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
@@ -539,7 +590,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 template <int D, int DV>
 int launch_f32(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
                int q_offset, float scale, const void* q, const void* k,
-               const void* v, void* o, cudaStream_t stream) {
+               const void* v, void* o, cudaStream_t stream, int G) {
   constexpr size_t smem = smem_bytes<D, DV>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -547,18 +598,19 @@ int launch_f32(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((unsigned)((Lq + kBQ - 1) / kBQ), (unsigned)Hq, (unsigned)B);
+  const dim3 grid((unsigned)((G * Lq + kBQ - 1) / kBQ), (unsigned)(Hq / G),
+                  (unsigned)B);
   flash_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Lq, Lk,
-      causal, window, q_offset, scale);
+      causal, window, q_offset, scale, G);
   return (int)cudaGetLastError();
 }
 
 template <int D, int DV>
 int launch_bf16(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
                 int q_offset, float scale, const void* q, const void* k,
-                const void* v, void* o, cudaStream_t stream) {
+                const void* v, void* o, cudaStream_t stream, int G) {
   constexpr size_t smem = bf16_smem<D, DV>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -566,13 +618,13 @@ int launch_bf16(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int nq = (Lq + kBQ - 1) / kBQ;
+  const int nq = (G * Lq + kBQ - 1) / kBQ;
   if (nq > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)Hq, (unsigned)nq, (unsigned)B);
+  const dim3 grid((unsigned)(Hq / G), (unsigned)nq, (unsigned)B);
   flash_bf16_kernel<D, DV><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Hq,
-      Hkv, Lq, Lk, causal, window, q_offset, scale);
+      Hkv, Lq, Lk, causal, window, q_offset, scale, G);
   return (int)cudaGetLastError();
 }
 
@@ -593,20 +645,27 @@ extern "C" int flash_attention(int dtype, int B, int Hq, int Hkv, int Lq,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the (D, Dv) pairs built: D = Dv for the GQA models (Yi 128, Danube 80,
-  // the tests'), (96, 64) for MLA's naive form (MiniCPM3-4B)
-#define FLASH_CASE(d, dv)                                                       \
-  if (D == d && Dv == dv)                                                       \
+  // the tests'), (96, 64) for MLA's naive form and (288, 256) for its
+  // absorbed form (MiniCPM3-4B). The absorbed form has one KV head for all
+  // query heads, so its tiles take every query head of a KV head (G = Hq /
+  // Hkv, grouped_row); the others take one head a tile (G = 1).
+#define FLASH_CASE(d, dv, g)                                                    \
+  if (D == d && Dv == dv) {                                                     \
+    const int G = (g);                                                          \
+    if ((long long)G * Lq >= (1LL << 31)) return (int)cudaErrorInvalidValue;    \
     return dtype == 0                                                           \
                ? launch_f32<d, dv>(B, Hq, Hkv, Lq, Lk, causal, window,          \
-                                   q_offset, scale, q, k, v, o, s)              \
+                                   q_offset, scale, q, k, v, o, s, G)           \
                : launch_bf16<d, dv>(B, Hq, Hkv, Lq, Lk, causal, window,         \
-                                    q_offset, scale, q, k, v, o, s);
-  FLASH_CASE(16, 16)
-  FLASH_CASE(32, 32)
-  FLASH_CASE(64, 64)
-  FLASH_CASE(80, 80)
-  FLASH_CASE(128, 128)
-  FLASH_CASE(96, 64)
+                                    q_offset, scale, q, k, v, o, s, G);         \
+  }
+  FLASH_CASE(16, 16, 1)
+  FLASH_CASE(32, 32, 1)
+  FLASH_CASE(64, 64, 1)
+  FLASH_CASE(80, 80, 1)
+  FLASH_CASE(128, 128, 1)
+  FLASH_CASE(96, 64, 1)
+  FLASH_CASE(288, 256, Hq / Hkv)
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -17,3 +17,27 @@ def launch_counters():
 
     return {"megastep": megastep_cuda, "raster": rasterize_cuda,
             "flash": flash_attention_cuda}
+
+
+#: while a list (analysis/cost.py::counting), each kernel dispatch appends
+#: (kernel name, a thunk giving its wrapper's `cost` for the launch it makes
+#: or the plain twin it runs); the thunk runs when the counting ends, so
+#: no count syncs the step it counts
+COST_LOG = None
+
+
+def log_cost(name: str, thunk) -> None:
+    if COST_LOG is not None:
+        COST_LOG.append((name, thunk))
+
+
+def plain(fn, *args, **kwargs):
+    """`fn(*args, **kwargs)`, a kernel's plain twin. While counting, the
+    counting dispatch modes are off for it: the kernel's `cost` stands for
+    its work, as it does for the launch on the card."""
+    if COST_LOG is None:
+        return fn(*args, **kwargs)
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return fn(*args, **kwargs)

@@ -19,8 +19,11 @@ import torch
 
 #: (D, Dv) head-dim pairs the kernels are instantiated for: D = Dv for the
 #: GQA models (Yi 128, Danube 80, the tests'), (96, 64) for MLA's naive form
-#: (MiniCPM3-4B: q and k of nope + rope, v of v_head_dim)
-HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128), (96, 64))
+#: (MiniCPM3-4B: q and k of nope + rope, v of v_head_dim) and (288, 256) for
+#: its absorbed form (q and k of kv_lora_rank + rope, v of kv_lora_rank, one
+#: KV head: its tiles take every query head of the KV head together)
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128), (96, 64),
+             (288, 256))
 #: dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,8 +73,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (d, dv) not in HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention_cuda is built for (D, Dv) in {HEAD_DIMS}; got "
-            f"({d}, {dv}). MLA's absorbed form attends over the latent with "
-            f"(288, 256) and one KV head: its instantiation is ROADMAP B4")
+            f"({d}, {dv}). ops.attention zero-pads a smaller pair up to a "
+            f"built one; a pair above 128 needs an instantiation of its own "
+            f"in csrc/flash.cu")
     for what, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
             raise ValueError(f"flash_attention_cuda takes CUDA tensors; {what}"
@@ -107,4 +111,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 #: kernel launches since the count was last set to 0 (chip_smoke.py reads it)
 flash_attention_cuda.launches = 0
 
-__all__ = ["DTYPES", "HEAD_DIMS", "flash_attention_cuda"]
+
+def cost(b: int, heads, lq: int, lk: int, causal: bool = True,
+         window: int = 0, q_offset: int = 0, itemsize: int = 2) -> dict:
+    """What one launch must move and do: `heads` (Hq, Hkv, D, Dv), every
+    query row's visible keys counted (causal, window and q_offset as the
+    kernel masks them). Bytes: Q read and O written once (D + Dv a query
+    row), the live K and V read once per KV head; flops: 2·(D + Dv) a live
+    query-key pair (q·k and p·v)."""
+    hq, hkv, d, dv = heads
+    live_pairs, lo_min, hi_max = 0, lk, 0
+    for i in range(lq):
+        qpos = q_offset + i
+        hi = min(lk, qpos + 1) if causal else lk
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        live_pairs += max(hi - lo, 0)
+        lo_min, hi_max = min(lo_min, lo), max(hi_max, hi)
+    live_keys = max(0, hi_max - lo_min)
+    return {"live_pairs": live_pairs * b * hq,
+            "bytes": itemsize * (d + dv) * b * (hq * lq + hkv * live_keys),
+            "flops": 2 * (d + dv) * live_pairs * b * hq}
+
+__all__ = ["DTYPES", "HEAD_DIMS", "cost", "flash_attention_cuda"]

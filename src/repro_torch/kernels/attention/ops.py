@@ -20,22 +20,62 @@ what it launched before.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.attention.flash import flash_attention_cuda
+from repro_torch import kernels
+from repro_torch.kernels.attention.flash import HEAD_DIMS, flash_attention_cuda
+from repro_torch.kernels.attention.flash import cost as flash_cost
 from repro_torch.kernels.attention.ref import attention_ref
 
 BACKENDS = ("auto", "cuda", "torch")
 #: query rows a backward chunk recomputes at once: `_attend_chunked`'s
 #: default `q_chunk` (src/repro/models/attention.py)
 Q_CHUNK = 512
+#: the widest head dims a call is zero-padded from (to a built pair)
+PAD_LIMIT = 128
 _NEG = -1e30
 
 
+def padded_pair(d: int, dv: int):
+    """The built (D, Dv) pair a call of head dims (d, dv) is zero-padded to
+    (the one of least D + Dv that covers both), or None where (d, dv) is
+    built itself or a dim is above `PAD_LIMIT` (such a call is refused by
+    the kernel). The reduced MiniCPM3's MLA heads, (24, 16), go to (32,
+    32)."""
+    if (d, dv) in HEAD_DIMS or max(d, dv) > PAD_LIMIT:
+        return None
+    fits = [p for p in HEAD_DIMS
+            if p[0] >= d and p[1] >= dv and max(p) <= PAD_LIMIT]
+    return min(fits, key=sum) if fits else None
+
+
+def padded(fn, q, k, v, pair, *, scale=None, **kw) -> torch.Tensor:
+    """`fn(q, k, v, scale=..., **kw)` with q and k zero-padded to pair[0]
+    and v to pair[1] in the head dim, the output sliced back to v's width.
+    Zero columns add nothing to q·k, and v's zero columns only add output
+    columns, so this is the unpadded function; the scale is passed as the
+    unpadded D's default."""
+    d, dv = q.shape[-1], v.shape[-1]
+    q, k = F.pad(q, (0, pair[0] - d)), F.pad(k, (0, pair[0] - d))
+    v = F.pad(v, (0, pair[1] - dv))
+    out = fn(q, k, v, scale=(d ** -0.5) if scale is None else scale, **kw)
+    return out[..., :dv].contiguous()
+
+
 def _forward(q, k, v, kernel: bool, **kw) -> torch.Tensor:
+    if kernels.COST_LOG is not None:
+        b, hq, lq, d = q.shape
+        heads = (hq, k.shape[1], d, v.shape[-1])
+        kernels.log_cost("flash", lambda: flash_cost(
+            b, heads, lq, k.shape[2], kw.get("causal", True),
+            kw.get("window", 0), kw.get("q_offset", 0), q.element_size()))
     if kernel:
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), **kw)
-    return attention_ref(q, k, v, **kw)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        pair = padded_pair(q.shape[-1], v.shape[-1])
+        if pair is not None:
+            return padded(flash_attention_cuda, q, k, v, pair, **kw)
+        return flash_attention_cuda(q, k, v, **kw)
+    return kernels.plain(attention_ref, q, k, v, **kw)
 
 
 def attention_backward(q, k, v, do, *, causal: bool = True, window: int = 0,
@@ -110,8 +150,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float | None = None, backend: str = "auto") -> torch.Tensor:
     """Multi-head GQA attention: q (B, Hq, Lq, D) over k (B, Hkv, Lk, D) and
     v (B, Hkv, Lk, Dv) -> (B, Hq, Lq, Dv); `scale` defaults to D ** -0.5.
-    On the card a (D, Dv) pair the kernel is not built for raises
-    NotImplementedError (flash.HEAD_DIMS). Differentiable: with grad mode
+    On the card a (D, Dv) pair the kernel is not built for is zero-padded
+    to a built one where both dims are at most `PAD_LIMIT` (`padded_pair`)
+    and raises NotImplementedError otherwise (flash.HEAD_DIMS). Differentiable: with grad mode
     on and an input requiring grad, the gradient is `attention_backward`."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
@@ -124,4 +165,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset=q_offset, scale=scale)
 
 
-__all__ = ["BACKENDS", "Q_CHUNK", "attention", "attention_backward"]
+__all__ = ["BACKENDS", "PAD_LIMIT", "Q_CHUNK", "attention", "attention_backward",
+           "padded", "padded_pair"]

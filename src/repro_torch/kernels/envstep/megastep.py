@@ -118,7 +118,47 @@ def megastep_cuda(kernel_id: int, state: torch.Tensor, keys: torch.Tensor,
     return new_state, final_keys, obs, tobs, reward, done, trunc
 
 
+#: float ops per lane-step of each body with TimeLimit, counted in
+#: csrc/megastep.cu: each add, multiply, divide, compare, select, fabsf,
+#: sinf and cosf is one, the TimeLimit fold included. CartPole's is a
+#: count; the others are lower estimates: the grid and puzzle bodies one
+#: per observation code stored, plus the move, the plane lookups, reward,
+#: done and the TimeLimit fold, Snake four more per cell for its ages;
+#: Acrobot four derivatives of ~30 ops; the rest their step's arithmetic.
+#: Far below the bytes and integer bounds, they decide nothing.
+FLOAT_OPS_PER_LANE_STEP = {"CartPole": 49, "MountainCar": 16, "Pendulum": 24,
+                           "Acrobot": 120, "Pong": 30, "Breakout": 40,
+                           "LightsOut": 37, "FrozenLake": 28, "CliffWalk": 62,
+                           "Maze": 78, "Snake": 200}
+#: int32 ops of one threefry-2x32 block (csrc/megastep.cu: 2 key xors, 2
+#: adds, 20 rounds of add, funnel shift and xor, 5 injections of 3 adds);
+#: every lane-step splits its key (2 blocks), and a lane-step that resets
+#: draws its body's reset (the blocks below, csrc/megastep.cu's header)
+THREEFRY_OPS = 79
+RESET_BLOCKS = {"CartPole": 2, "MountainCar": 1, "Pendulum": 4, "Acrobot": 2,
+                "Pong": 6, "Breakout": 4, "LightsOut": 8, "FrozenLake": 13,
+                "CliffWalk": 30, "Maze": 46, "Snake": 18}
+
+
+def cost(body: str, b: int, k: int, s: int, o: int, resets: int = 0) -> dict:
+    """What one launch must move and do: `body` the dynamics' name
+    (FLOAT_OPS_PER_LANE_STEP), B lanes, K steps, s state rows (the TimeLimit
+    row counted where there is one), o observation rows, `resets` the
+    lane-steps that reset (the launch's done count). Bytes: each input read
+    once (state, the (B, 2) int64 keys as 4 floats' worth a lane, the
+    actions), each output written once (state, keys, obs, terminal_obs,
+    reward, done, truncated). Int32 ops: 2 threefry blocks a lane-step for
+    its key split, and each reset's blocks; float ops: the body's
+    arithmetic."""
+    reads = s + 4 + k
+    writes = s + 4 + k * (2 * o + 3)
+    blocks = 2 * b * k + resets * RESET_BLOCKS[body]
+    return {"bytes": 4 * b * (reads + writes), "int_ops": THREEFRY_OPS * blocks,
+            "float_ops": FLOAT_OPS_PER_LANE_STEP[body] * b * k}
+
+
 #: kernel launches since the count was last set to 0 (chip_smoke.py reads it)
 megastep_cuda.launches = 0
 
-__all__ = ["BODIES", "Body", "megastep_cuda"]
+__all__ = ["BODIES", "Body", "FLOAT_OPS_PER_LANE_STEP", "RESET_BLOCKS",
+           "THREEFRY_OPS", "cost", "megastep_cuda"]

@@ -40,6 +40,8 @@ from torch.utils._pytree import tree_map
 
 from repro_torch import random as R
 from repro_torch.core import pipeline as P
+from repro_torch import kernels
+from repro_torch.kernels.envstep.megastep import cost as megastep_cost
 from repro_torch.kernels.envstep.megastep import megastep_cuda
 from repro_torch.kernels.envstep.ref import megastep_ref
 from repro_torch.kernels.envstep.specs import lookup
@@ -64,12 +66,24 @@ def env_megastep(spec, state, keys, actions, *, core,
     if backend == "cuda" or (backend == "auto" and state.is_cuda):
         if spec.kernel_mismatch is not None:
             raise NotImplementedError(spec.kernel_mismatch)
-        return megastep_cuda(spec.kernel_id, state, keys, actions,
-                             max_steps=max_steps)
+        out = megastep_cuda(spec.kernel_id, state, keys, actions,
+                            max_steps=max_steps)
+    else:
+        out = kernels.plain(_plain_megastep, spec, state, keys, actions,
+                            core, max_steps)
+    if kernels.COST_LOG is not None:
+        k, b = actions.shape
+        kernels.log_cost("megastep", lambda: megastep_cost(
+            spec.name, b, k, state.shape[0], spec.obs_size,
+            int(out[5].sum())))
+    return out
+
+
+def _plain_megastep(spec, state, keys, actions, core, max_steps):
     final_keys, fresh, fresh_obs = fresh_rows(core, keys, actions.shape[0])
-    new_state, *out = megastep_ref(spec.step_rows, state, actions, fresh,
-                                   fresh_obs, max_steps=max_steps)
-    return (new_state, final_keys, *out)
+    new_state, *rest = megastep_ref(spec.step_rows, state, actions, fresh,
+                                    fresh_obs, max_steps=max_steps)
+    return (new_state, final_keys, *rest)
 
 
 def _plan(env):

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import kernels
+from repro_torch.kernels.raster.raster import cost as raster_cost
 from repro_torch.kernels.raster.raster import rasterize_cuda
 from repro_torch.kernels.raster.ref import rasterize_ref
 
@@ -22,10 +24,23 @@ def rasterize(segs: torch.Tensor, intens: torch.Tensor, h: int, w: int,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
+    if kernels.COST_LOG is not None:
+        kernels.log_cost("raster", lambda: _cost(segs, intens, h, w))
     if backend == "cuda" or (backend == "auto" and segs.is_cuda):
         return rasterize_cuda(segs.to(torch.float32).contiguous(),
                               intens.to(torch.float32).contiguous(), h, w)
-    return rasterize_ref(segs, intens, h, w)
+    return kernels.plain(rasterize_ref, segs, intens, h, w)
+
+
+def _cost(segs, intens, h, w):
+    """raster.cost of one launch over these scenes: the covered pairs
+    counted with the plain version's coverage."""
+    from repro_torch.kernels.raster.ref import segment_coverage
+
+    n, s = intens.shape
+    covered = sum(int((c > 0).sum())
+                  for c in segment_coverage(segs, intens, h, w))
+    return raster_cost(n, s, h, w, covered, int((intens != 0).sum()))
 
 
 def capsule_scene(like: torch.Tensor, segments, intens):

@@ -63,7 +63,33 @@ def rasterize_cuda(segs: torch.Tensor, intens: torch.Tensor, h: int,
     return out
 
 
+#: float ops of csrc/raster.cu, counted there: per pixel-segment pair (the
+#: coverage, its clips and the running max; sqrtf and each division one
+#: op), per segment staged (dx, dy, the squared length and its clamp) and
+#: per pixel (its centre)
+OPS_PER_PIXEL_SEGMENT = 25
+OPS_PER_SEGMENT = 6
+OPS_PER_PIXEL = 4
+
+
+def cost(n: int, s: int, h: int, w: int, covered_pairs: int,
+         live_segments: int | None = None) -> dict:
+    """What one launch over N scenes of S segments into (H, W) frames must
+    move and do: segments (5 floats) and intensities read once, frames
+    written once; ops over the `covered_pairs` pixel-segment pairs of
+    non-zero coverage (a pair of zero coverage cannot raise the max: what
+    these scenes need), and (`ops_all_pairs`) over every pair of the
+    `live_segments` (nonzero-intensity) segments, the count of earlier
+    versions of this bound."""
+    rest = n * s * OPS_PER_SEGMENT + n * h * w * OPS_PER_PIXEL
+    live = n * s if live_segments is None else live_segments
+    return {"bytes": 4 * (n * s * 6 + n * h * w),
+            "ops": covered_pairs * OPS_PER_PIXEL_SEGMENT + rest,
+            "ops_all_pairs": live * h * w * OPS_PER_PIXEL_SEGMENT + rest}
+
+
 #: kernel launches since the count was last set to 0 (chip_smoke.py reads it)
 rasterize_cuda.launches = 0
 
-__all__ = ["rasterize_cuda"]
+__all__ = ["OPS_PER_PIXEL", "OPS_PER_PIXEL_SEGMENT", "OPS_PER_SEGMENT", "cost",
+           "rasterize_cuda"]

@@ -24,8 +24,8 @@ MLA's naive form expands the latent to per-head keys (nope + rope = 96 at
 MiniCPM3-4B) and values (v_head_dim = 64) and attends through the kernel's
 (96, 64) instantiation; its absorbed form (`cfg.mla_absorb`, off in every
 config) attends over the latent with (kv_lora_rank + rope, kv_lora_rank)
-and one KV head, which the kernel is not built for: on the card it raises
-NotImplementedError (ROADMAP B4), on the CPU it runs the plain version.
+and one KV head, through the kernel's (288, 256) instantiation, whose tiles
+take all the query heads of the one KV head together.
 """
 from __future__ import annotations
 

@@ -40,6 +40,7 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch import random as R
+from repro_torch.core.carry import adopt, write_carry
 from repro_torch.core.env import Env, supports_fused_step
 from repro_torch.core.registry import make as registry_make
 from repro_torch.core.spaces import sample_batch
@@ -207,8 +208,8 @@ class AsyncEnvPool:
         if self._state is None:
             with self._on_stream():
                 # repro: allow[unguarded-mutation] every caller holds self._cond (admit, admit_many, admit_lane, state_dict, load_state_dict)
-                self._state, self._obs = self.venv.reset(
-                    R.PRNGKey(0, self.device))
+                self._state, self._obs = adopt(self.venv.reset(
+                    R.PRNGKey(0, self.device)))
 
     def _lane(self, slot: int):
         return {"state": tree_map(lambda x: x[slot], self._state),
@@ -362,8 +363,9 @@ class AsyncEnvPool:
             self._pending.clear()
             self._ensure_carry()
             with self._on_stream():
-                self._state = _load_like(self._state, d["state"], self.device)
-                self._obs = _load_like(self._obs, d["obs"], self.device)
+                self._state, self._obs = adopt((
+                    _load_like(self._state, d["state"], self.device),
+                    _load_like(self._obs, d["obs"], self.device)))
             self._active = active.copy()
             self._recv_key = _host_key(d["recv_key"])
             self._key = (_host_key(d["facade_key"])
@@ -393,7 +395,7 @@ class AsyncEnvPool:
     def _masked_step(self, actions, active, key):
         """One masked step of the table: every lane is stepped, then the
         idle lanes get their state, key and obs back (`keep_idle_state`).
-        Replaces the carry. The outputs are the unmasked step's, every
+        Writes the carry in place (core/carry.py). The outputs are the unmasked step's, every
         lane's: only the active lanes' rows may be read."""
         if self.backend != "vmap":
             state, ts = self.env.fused_step(
@@ -404,9 +406,8 @@ class AsyncEnvPool:
             ts = self.venv.step(self._state, actions, key)  # exactly Vec.step
             state, obs, rew, done, info = (ts.state, ts.obs, ts.reward,
                                            ts.done, ts.info)
-        # repro: allow[unguarded-mutation,lock-discipline] the caller holds self._cond (recv, through _step_ready)
-        self._state, self._obs = keep_idle_state(
-            (self._state, self._obs), (state, obs), active)
+        write_carry((self._state, self._obs), keep_idle_state(
+            (self._state, self._obs), (state, obs), active))
         return obs, rew, done, info
 
     def _step_ready(self, staged):
@@ -493,7 +494,7 @@ class AsyncEnvPool:
             self._pending.clear()
             with self._on_stream():
                 key = R.PRNGKey(seed, self.device)
-                self._state, self._obs = self.venv.reset(key)
+                self._state, self._obs = adopt(self.venv.reset(key))
                 self._key = R.fold_in(R.PRNGKey(seed, "cpu"),
                                       0x57EB).numpy().copy()
                 self._active[:] = True

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as R
+from repro_torch.core.carry import adopt, write_carry
 from repro_torch.core.env import Env, supports_fused_step
 from repro_torch.core.registry import make as registry_make
 from repro_torch.core.spaces import sample_batch
@@ -246,20 +247,22 @@ class EnvPool:
     def reset(self, seed: int = 0) -> torch.Tensor:
         """(Re)initialise all envs; returns the batched observation."""
         ps = self._xla_init(R.PRNGKey(seed, self.device))
-        self._carry, self._obs = (ps.env_state, ps.key), ps.obs
+        self._carry, self._obs = adopt((ps.env_state, ps.key)), ps.obs
         return self._obs
 
     def step(self, actions, key: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict]:
         """Step every env once. Autoreset on done. `key` pins the per-step
-        RNG stream and leaves the carry's chain untouched."""
+        RNG stream and leaves the carry's chain untouched. The carry (state
+        and key) is written in place (core/carry.py)."""
         if self._carry is None:
             raise RuntimeError("call reset() before step()")
         env_state, carry_key = self._carry
         ps, out = self._xla_step(PoolState(env_state, self._obs, carry_key),
                                  torch.as_tensor(actions, device=self.device),
                                  key)
-        self._carry, self._obs = (ps.env_state, ps.key), out.obs
+        write_carry(self._carry, (ps.env_state, ps.key))
+        self._obs = out.obs
         return out.obs, out.reward, out.done, out.info
 
     def sample_actions(self, seed: int = 0) -> torch.Tensor:
@@ -286,9 +289,9 @@ class EnvPool:
         """Restore a `state_dict()` snapshot, this pool's or the JAX pool's:
         its NamedTuples are read by field name, its leaves as arrays."""
         template = self._xla_init(R.PRNGKey(0, self.device))
-        self._carry = (_load_like(template.env_state, d["env_state"],
-                                  self.device),
-                       _load_like(template.key, d["key"], self.device))
+        self._carry = adopt((_load_like(template.env_state, d["env_state"],
+                                        self.device),
+                             _load_like(template.key, d["key"], self.device)))
         self._obs = _load_like(template.obs, d["obs"], self.device)
 
     def _render(self, env_state) -> torch.Tensor:
@@ -318,6 +321,7 @@ class EnvPool:
             for i in range(1, num_steps + 1):
                 k = R.fold_in(key, i)
                 acts = sample_batch(self.action_space, k, self.num_envs)
+                # repro: allow[key-reuse] the JAX pool's chain: the action draw and the step share the step key
                 ps, out = self._xla_step(ps, acts, k)
                 rew = rew + out.reward
                 eps = eps + out.done.to(torch.int32)

@@ -29,6 +29,7 @@ import torch
 from torch.utils._pytree import tree_map
 
 from repro_torch import random as R
+from repro_torch.core.carry import adopt
 from repro_torch.core.env import Env
 from repro_torch.core.registry import make as registry_make
 from repro_torch.core.wrappers import AutoReset, Vec
@@ -171,7 +172,8 @@ class ShardedEnvPool(EnvPool):
             part = tree_map(lambda x: np.asarray(x)[self._lanes(i)],
                             d["env_state"])
             shards.append(_load_like(template.env_state[i], part, dev))
-        self._carry = (shards, _load_like(template.key, d["key"], self.device))
+        self._carry = adopt((shards, _load_like(template.key, d["key"],
+                                                self.device)))
         self._obs = _load_like(template.obs, d["obs"], self.device)
 
 

@@ -1,8 +1,6 @@
 """runtime subsystem (port of `repro.runtime`): elasticity, failure
-detection, supervised rollouts and straggler telemetry. `reshard_state`,
-which places LM parameters by the sharding rules, comes with those rules
-(ROADMAP A14)."""
-from repro_torch.runtime.elastic import build_mesh, propose_mesh
+detection, supervised rollouts and straggler telemetry."""
+from repro_torch.runtime.elastic import build_mesh, propose_mesh, reshard_state
 from repro_torch.runtime.failures import (DeviceLossError, Fault,
                                           FaultInjector, HeartbeatMonitor,
                                           HostStatus, RecoveryPlan,
@@ -11,7 +9,7 @@ from repro_torch.runtime.straggler import StragglerReport, StragglerTracker
 from repro_torch.runtime.supervisor import RolloutSupervisor
 
 __all__ = [
-    "build_mesh", "propose_mesh",
+    "build_mesh", "propose_mesh", "reshard_state",
     "DeviceLossError", "Fault", "FaultInjector", "HeartbeatMonitor",
     "HostStatus", "RecoveryPlan", "plan_recovery",
     "StragglerReport", "StragglerTracker", "RolloutSupervisor",

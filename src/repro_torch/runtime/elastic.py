@@ -5,8 +5,10 @@ Checkpoints are gathered, whole-batch arrays (checkpoint/manager.py), and
 a pool splits a snapshot over whatever devices it is built on (a
 `ShardedEnvPool` over its tuple of devices), so scaling down after a loss
 is: propose a mesh, rebuild the pool on it, restore. A mesh here is a
-tuple of `torch.device`s. `reshard_state`, which places LM parameters by
-the sharding rules, comes with those rules (ROADMAP A14).
+tuple of `torch.device`s. `reshard_state` places a restored state on a
+mesh: on one device every leaf goes there; laying LM parameters over
+several by the sharding rules (`sharding/rules.py`) is not ported, and it
+raises.
 """
 from __future__ import annotations
 
@@ -57,4 +59,24 @@ def build_mesh(n_devices: Optional[int] = None,
     return (torch.device(device_type),)
 
 
-__all__ = ["build_mesh", "propose_mesh", "visible_devices"]
+def reshard_state(state, mesh):
+    """Re-place a (restored) state tree onto `mesh`: a tuple of devices, or
+    a `launch/mesh.py::Mesh` laid over devices. On a one-device mesh every
+    tensor leaf moves to that device. On more devices the JAX package lays
+    each leaf out by `sharding.rules.param_specs`; the port has no
+    sharded tensors to lay them into, so that raises NotImplementedError
+    (ROADMAP: LM parameter sharding across cards)."""
+    from torch.utils._pytree import tree_map
+
+    devices = tuple(getattr(mesh, "devices", mesh))
+    if len(devices) != 1:
+        raise NotImplementedError(
+            f"reshard_state over {len(devices)} devices: laying LM "
+            "parameters over several cards by the sharding rules is not "
+            "ported; one device takes the whole state")
+    dev = torch.device(devices[0])
+    return tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                    else x, state)
+
+
+__all__ = ["build_mesh", "propose_mesh", "reshard_state", "visible_devices"]

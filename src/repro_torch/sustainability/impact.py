@@ -15,7 +15,9 @@ account for the environment run-time costs" — is exposed via
 `Impact.minus(other)`. Constants are module-level and documented so results
 are auditable. They are the paper's CPU envelope: a run on the card reports
 the card's power limit beside them (`nvidia-smi`), since the model charges
-no accelerator. The compile-time `StaticImpact` comes with ROADMAP A14.
+no accelerator. `StaticImpact` charges a static time bound (the cost
+model's, `repro_torch.analysis.cost`) against a power limit its caller
+names: the card's, as `nvidia-smi --query-gpu=power.limit` gives it.
 """
 from __future__ import annotations
 
@@ -67,6 +69,50 @@ class Impact:
         }
 
 
+@dataclasses.dataclass
+class StaticImpact:
+    """Table II's analogue from a static time bound instead of a measured
+    wall clock (port of `repro.sustainability.impact.StaticImpact`).
+
+    `seconds_per_step` is a roofline bound per env step (the larger of
+    compute and memory time, over the env steps of one launch: see
+    `repro_torch.analysis.cost`); `watts` the power the bound is charged
+    at, which the caller gives: the card's power limit (700 W for an H100
+    SXM5 at its maximum). The JAX package defaults it to a TPU envelope;
+    here it has no default. Deterministic: the same shapes always give the
+    same joules.
+    """
+
+    seconds_per_step: float
+    watts: float
+
+    @property
+    def joules_per_step(self) -> float:
+        return self.seconds_per_step * self.watts
+
+    @property
+    def joules_per_mstep(self) -> float:
+        """Joules per million env steps (the Table II normalisation)."""
+        return self.joules_per_step * 1e6
+
+    @property
+    def kwh_per_mstep(self) -> float:
+        return self.joules_per_mstep / 3.6e6
+
+    @property
+    def co2_g_per_mstep(self) -> float:
+        return self.kwh_per_mstep * CARBON_INTENSITY_KG_PER_KWH * 1e3
+
+    def report(self) -> dict:
+        return {
+            "seconds_per_step": self.seconds_per_step,
+            "watts": self.watts,
+            "joules_per_mstep": self.joules_per_mstep,
+            "kwh_per_mstep": self.kwh_per_mstep,
+            "co2_g_per_mstep": self.co2_g_per_mstep,
+        }
+
+
 class ImpactTracker:
     """Context manager: `with ImpactTracker() as t: ...; t.impact.report()`."""
 
@@ -88,4 +134,4 @@ class ImpactTracker:
 
 
 __all__ = ["CARBON_INTENSITY_KG_PER_KWH", "CPU_TDP_WATTS", "Impact",
-           "ImpactTracker"]
+           "ImpactTracker", "StaticImpact"]

@@ -55,6 +55,7 @@ from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
                                  tree_unflatten)
 
 from repro_torch import random as R
+from repro_torch.core.carry import adopt, storage as _storage, write_back
 from repro_torch.core.env import Env
 from repro_torch.core.registry import make as registry_make
 from repro_torch.device import resolve_device
@@ -77,25 +78,12 @@ WARMUP_STEPS = 1
 
 # -- the fused chunk runner ---------------------------------------------------
 
-def _storage(x: torch.Tensor) -> int:
-    return x.untyped_storage().data_ptr()
-
-
 def _donate_safe(carry):
     """Copy carry leaves that share memory with an earlier leaf. An init
     may hand one tensor (or views of one buffer) to several carry slots,
     but the fused runner writes every slot in place, so each needs its own
-    buffer."""
-    seen = set()
-
-    def dedupe(x):
-        if isinstance(x, torch.Tensor) and x.numel():
-            if _storage(x) in seen:
-                return x.clone()
-            seen.add(_storage(x))
-        return x
-
-    return tree_map(dedupe, carry)
+    buffer (core/carry.py::adopt)."""
+    return adopt(carry)
 
 
 class _Packed(NamedTuple):
@@ -159,6 +147,7 @@ class _GraphRunner:
         self.stream = None
         self.mempool = None
         self.layout = None
+        self.keep_graph = False
         #: the capture's seconds and captured launches; the number of
         #: replays and of eager warm-up steps
         self.stats = {"capture": None, "replays": 0, "warmup_steps": 0}
@@ -177,10 +166,12 @@ class _GraphRunner:
 
     def _capture(self):
         """Capture `unit` steps from the static buffers, ending with the
-        copies of the new carry into them."""
+        copies of the new carry into them. With `keep_graph` set, the
+        graph keeps its node list for the audit
+        (launch/graph_analysis.py)."""
         counters = _counters()
         before = {k: fn.launches for k, fn in counters.items()}
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
         # the capture synchronises first; the wait for queued replays is
         # not capture time
         torch.cuda.synchronize()
@@ -203,6 +194,8 @@ class _GraphRunner:
                                      "its carry")
                 self._write_back(new)
                 slot, layout = _pack(ms)
+            if self.keep_graph:
+                graph.instantiate()
         except Exception as e:
             raise RuntimeError(f"capturing {self.unit} train steps into a "
                                f"CUDA graph failed: {e}") from e
@@ -223,26 +216,23 @@ class _GraphRunner:
         return self.graph
 
     def _write_back(self, new) -> None:
-        """Copy each new leaf into its buffer. A leaf the step wrote in
-        place is its buffer already; a new leaf that lies in another
-        buffer's memory is cloned before any buffer is written."""
-        static = {_storage(b) for b in self.buffers if b.numel()}
-        srcs = []
-        for dst, src in zip(self.buffers, new):
-            if (src.shape, src.dtype) != (dst.shape, dst.dtype):
-                raise ValueError(f"a carry leaf changed from {dst.dtype}"
-                                 f"{tuple(dst.shape)} to {src.dtype}"
-                                 f"{tuple(src.shape)}")
-            if src is dst or (src.data_ptr() == dst.data_ptr()
-                              and src.stride() == dst.stride()):
-                srcs.append(None)
-            elif src.numel() and _storage(src) in static:
-                srcs.append(src.clone())
-            else:
-                srcs.append(src)
-        for dst, src in zip(self.buffers, srcs):
-            if src is not None:
-                dst.copy_(src)
+        write_back(self.buffers, new)
+
+    def lower(self, carry):
+        """The warm-up steps and the capture of `carry`'s unit, with no
+        replay: (graph, carry), `carry` the static buffers the graph reads
+        and writes in place."""
+        device = tree_leaves(carry)[0].device
+        current = torch.cuda.current_stream(device)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            carry, _ = self._warmup(carry, WARMUP_STEPS)
+            self._adopt(carry)
+            graph, _, _ = self._capture()
+        current.wait_stream(self.stream)
+        return graph, tree_unflatten(self.buffers, self.spec)
 
     def _warmup(self, carry, steps):
         ms = []
@@ -433,6 +423,36 @@ def fleet(env: Union[Env, str], grid, steps: int, *, algo: str = "dqn",
     return states, {k: v.transpose(0, 1) for k, v in metrics.items()}
 
 
+def lower_train_chunk(algo: str, env_id: str, cfg=None, chunk: int = 8,
+                      device=None):
+    """Capture, without replaying, the fused train unit `run_fused`
+    replays for `algo` on `env_id` (the golden config when `cfg` is None),
+    for the audit (`analysis/audit.py`'s train rows): the counterpart of
+    the JAX package's `lower_train_chunk`, which lowers the donated chunk
+    for HLO inspection. Returns `(graph, carry)`: the `torch.cuda.CUDAGraph`
+    of one unit, captured with `keep_graph=True` so that its nodes can be
+    read (`launch/graph_analysis.py`), and the carry after the warm-up step,
+    whose leaves are the static buffers the graph writes in place: each
+    `graph.replay()` advances it `UNIT_STEPS` steps. A chunk of any length
+    replays this one unit, so `chunk` (kept for the JAX signature) only
+    has to be at least 1. A CUDA graph is captured on a CUDA device: any
+    other raises ValueError.
+    """
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError(f"a train chunk is captured into a CUDA graph on a "
+                         f"CUDA device, not {device}")
+    if chunk < 1:
+        raise ValueError(f"a chunk of {chunk} steps")
+    env = registry_make(env_id)
+    if cfg is None:
+        _, _, cfg, _ = golden_train_setup(f"{algo}/{env_id}")
+    _, init_row, step_fn = _algo_parts(env, algo, cfg, device)
+    runner = _GraphRunner(step_fn)
+    runner.keep_graph = True
+    return runner.lower(init_row(R.PRNGKey(0, device)))
+
+
 # -- golden training configurations (tests and chip_smoke.py share these) ------
 
 def golden_train_setup(gid: str):
@@ -461,4 +481,5 @@ def golden_train_setup(gid: str):
 
 
 __all__ = ["Fleet", "GOLDEN_TRAIN_IDS", "fleet", "fleet_grid",
-           "fused_train_chunk", "golden_train_setup", "run_fused"]
+           "fused_train_chunk", "golden_train_setup", "lower_train_chunk",
+           "run_fused"]

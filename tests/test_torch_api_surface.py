@@ -26,10 +26,8 @@ def _one_thread():
 
 
 #: JAX-package names the port does not export yet, by module, with the
-#: ROADMAP item each comes with
-PENDING = {
-    "repro.train": {"lower_train_chunk": "A14"},
-}
+#: ROADMAP item each comes with (none: the whole surface is ported)
+PENDING = {}
 PORTED = ("repro", "repro.core", "repro.pool", "repro.cairl", "repro.train")
 
 

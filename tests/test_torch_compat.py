@@ -408,4 +408,8 @@ def test_impact_arithmetic_matches_jax():
         sum(i * i for i in range(20000))
     report = tracker.impact.report()
     assert report["wall_s"] > 0 and report["energy_mWh"] >= 0
-    assert not hasattr(TI, "StaticImpact")
+    # the static model charges a power limit its caller names: no default
+    assert TI.StaticImpact(2e-9, 700.0).report() == JI.StaticImpact(
+        2e-9, 700.0).report()
+    with pytest.raises(TypeError):
+        TI.StaticImpact(2e-9)

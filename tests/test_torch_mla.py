@@ -26,7 +26,7 @@ from repro.models import lm as jax_lm
 from repro.serving import engine as jax_engine
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels.attention import ops
-from repro_torch.kernels.attention.flash import flash_attention_cuda
+from repro_torch.kernels.attention.flash import HEAD_DIMS, flash_attention_cuda
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.launch import serve
 from repro_torch.models import attention, lm
@@ -175,25 +175,57 @@ def test_attention_with_its_own_value_dim_matches_jax(hq, hkv, lq, lk, d, dv,
 
 
 def test_kernel_refuses_the_absorbed_dims():
-    """The kernel is built for (96, 64), MLA's naive form; the absorbed form
-    at MiniCPM3's widths attends with (288, 256) over one KV head. Asked for
-    it, the wrapper raises, naming its ROADMAP item, and launches nothing
-    (the dims are checked before the device)."""
+    """The kernel is built for MLA's absorbed form: at MiniCPM3's widths it
+    attends with (288, 256) over one KV head. Given CPU tensors of those
+    dims, the wrapper refuses them for their device (not for their dims),
+    as it does the naive form's (96, 64), and launches nothing; a pair that
+    is neither built nor paddable (above 128) is still refused for its
+    dims."""
     cfg = get_config(ARCH)
     d = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    assert (d, cfg.kv_lora_rank) == (288, 256) and (288, 256) in HEAD_DIMS
     q = torch.zeros((1, cfg.num_heads, 4, d))
     k = torch.zeros((1, 1, 8, d))
     v = torch.zeros((1, 1, 8, cfg.kv_lora_rank))
     before = flash_attention_cuda.launches
-    with pytest.raises(NotImplementedError, match=r"\(288, 256\).*ROADMAP B4"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         ops.attention(q, k, v, backend="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_cuda(q, k, v)
-    # the naive form's dims are built: a CPU tensor is refused for its device
+    # the naive form's dims are built too
     q = torch.zeros((1, 4, 4, 96))
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_cuda(q, torch.zeros((1, 4, 8, 96)), torch.zeros((1, 4, 8, 64)))
+    with pytest.raises(NotImplementedError, match=r"\(160, 128\)"):
+        flash_attention_cuda(torch.zeros((1, 4, 4, 160)), torch.zeros((1, 4, 8, 160)),
+                             torch.zeros((1, 4, 8, 128)))
     assert flash_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("d,dv,pair", [
+    (24, 16, (32, 32)),       # the reduced MiniCPM3's MLA heads
+    (48, 48, (64, 64)),
+    (72, 64, (80, 80)),
+    (96, 64, None),           # built: no padding
+    (144, 128, None),         # above the pad limit: refused on the card
+])
+def test_padded_plain_path_equals_the_unpadded_one(d, dv, pair):
+    """ops pads an unbuilt pair with both dims <= 128 to the least built
+    pair covering it; the padded plain attention (the function the kernel
+    computes on the card) equals the unpadded one."""
+    assert ops.padded_pair(d, dv) == pair
+    if pair is None:
+        return
+    rng = np.random.default_rng(d + dv)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 7, d), np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 2, 11, d), np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 2, 11, dv), np.float32))
+    for kw in (dict(causal=True, q_offset=4), dict(causal=True, window=3),
+               dict(causal=False, scale=0.3)):
+        want = attention_ref(q, k, v, **kw)
+        got = ops.padded(attention_ref, q, k, v, pair, **kw)
+        assert got.shape == want.shape and got.is_contiguous()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("absorb", [False, True], ids=["naive", "absorbed"])
