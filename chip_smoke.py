@@ -80,6 +80,17 @@ repository around it. Phases, each printing one JSON line with its seconds:
            zero-padded to (32, 32); the attention backward (the JAX package's plain
            recompute) at danube's training shape against autograd through
            attention_ref, timed beside the kernel's forward and SDPA's
+  sharded  the sharded LM step on DTensor: one nccl rank, a (1, 1)
+           ("data", "model") DeviceMesh over the card; h2o-danube-1.8b at
+           full width, 2 layers, 2 steps of 4 × 2,048 tokens (bf16, remat
+           "dots") and olmoe-1b-7b at full width, 2 layers, 1 step, each
+           from one seed as plain tensors and laid out by reshard_state:
+           losses, grad norms and f32 params within 1e-6, flash launches
+           exact (8 and 4, counts set to 0 just before the DTensor run),
+           ms a step of both; a sharded checkpoint restored with
+           shardings= bit for bit; launch/perf.py's yi-6b train_4k
+           (baseline, remat=dots) and olmoe-1b-7b (moe_ep_only=1) on the
+           (16, 16) mesh, subprocesses beside it, collective bytes printed
   kernel   the CUDA megastep, which splits each lane's key and runs the
            env's reset in-kernel, against its plain twin on the card (the
            key chain and resets of fresh_rows, then megastep_ref): the four
@@ -218,6 +229,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3194,8 +3206,10 @@ def captured_attention(layers, backend="auto"):
 
     def spy(q, k, v, **kw):
         if calls[0] in layers:
+            # the kernel's arguments (q_chunk sets the backward's chunk only)
             seen[calls[0]] = tuple(x.clone(memory_format=torch.contiguous_format)
-                                   for x in (q, k, v)) + (dict(kw),)
+                                   for x in (q, k, v)) + (
+                {n: a for n, a in kw.items() if n != "q_chunk"},)
         calls[0] += 1
         return original(q, k, v, **{**kw, "backend": backend})
 
@@ -4490,6 +4504,222 @@ def phase_lm_train(torch, device, bw, fp32_flops, bf16_flops):
     return out
 
 
+# -- the sharded LM step --------------------------------------------------------
+#: phase sharded: one nccl rank, a (1, 1) ("data", "model") DeviceMesh over
+#: the card. h2o-danube-1.8b at full width, SHARDED_LAYERS of its 24 layers,
+#: SHARDED_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens (bf16 compute,
+#: remat "dots"), from one seed twice: as plain tensors, then laid out by
+#: reshard_state as DTensors; olmoe-1b-7b at full width, SHARDED_LAYERS
+#: layers, SHARDED_MOE_STEPS step, the same way. On one rank the DTensor
+#: step runs the plain step's aten calls on whole tensors (local_map hands
+#: the kernel the rank's shard, which is the whole): losses, grad norms and
+#: the updated f32 params within SHARDED_TOL (absolute). The dense run
+#: launches flash 2 a layer a step (the forward and the "dots" recompute).
+#: The MoE pair runs under torch.use_deterministic_algorithms: on CUDA its
+#: combine's `index_add_` sums by atomics otherwise, and two plain runs
+#: differ (the first call: 3.5e-5 in the loss, 2e-3 in a param after Adam)
+SHARDED_LAYERS, SHARDED_STEPS, SHARDED_MOE_STEPS = 2, 2, 1
+SHARDED_TOL = 1e-6
+#: launch/perf.py's cells, each `python -m repro_torch.launch.perf` in a
+#: subprocess of its own (all three at once: each is one CPU process on
+#: the production mesh as a described mesh, fake tensors)
+SHARDED_PERF = (("yi-6b", ""), ("yi-6b", "remat=dots"),
+                ("olmoe-1b-7b", "moe_ep_only=1"))
+
+
+def _sharded_pair(torch, device, cfg, tc, steps, mesh, dc):
+    """`steps` train steps of `cfg` from LM_SEED twice, plain and laid out
+    by reshard_state on `mesh`: per run the metrics, the ms a step (host
+    clock, each step ended by reading its loss), the flash launches of the
+    sharded run (counts set to 0 just before it, read just after), and the
+    largest difference of losses, grad norms and params."""
+    import gc
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.train import trainer
+
+    runs = {}
+    for sharded in (False, True):
+        gen = torch.Generator(device=device).manual_seed(LM_SEED)
+        params = lm.init_params(cfg, gen, device)
+        opt = trainer.make_optimizer(tc).init(params)
+        if sharded:
+            params, opt = reshard_state((params, opt), mesh)
+        step = trainer.make_train_step(cfg, tc)
+        batches = [launch_train.batch_at(cfg, dc, s, device)
+                   for s in range(steps)]
+        metrics, secs = [], []
+        torch.cuda.synchronize()
+        if sharded:
+            reset_counts()
+        for batch in batches:
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+            secs.append(time.perf_counter() - t)
+        launches = read_counts() if sharded else None
+        leaves = [x.full_tensor() if sharded else x
+                  for x in lm.tree_leaves(params)]
+        runs[sharded] = {"metrics": metrics, "ms": [1e3 * x for x in secs],
+                         "launches": launches, "leaves": leaves,
+                         "state": (params, opt) if sharded else None}
+        del params, opt, step, batches
+        gc.collect()
+    plain, dt = runs[False], runs[True]
+    diff = {
+        "loss": max(abs(a["loss"] - b["loss"])
+                    for a, b in zip(plain["metrics"], dt["metrics"])),
+        "grad_norm": max(abs(a["grad_norm"] - b["grad_norm"])
+                         for a, b in zip(plain["metrics"], dt["metrics"])),
+        "params": max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(plain["leaves"], dt["leaves"]))}
+    out = {"layers": SHARDED_LAYERS, "steps": steps,
+           "tokens_per_step": dc.global_batch * dc.seq_len,
+           "metrics_plain": plain["metrics"], "metrics_dtensor": dt["metrics"],
+           "ms_plain": plain["ms"], "ms_dtensor": dt["ms"],
+           "launches": dt["launches"], "max_abs_diff": diff,
+           "tol": SHARDED_TOL}
+    # the first step builds DTensor's sharding strategies: the overhead is
+    # read from the last step
+    out["dtensor_overhead_ms"] = dt["ms"][-1] - plain["ms"][-1]
+    return out, dt["state"]
+
+
+def start_perf():
+    """launch/perf.py's SHARDED_PERF cells, each a subprocess started now
+    (main() starts them after the build, so that they run on the host's
+    cores beside the card's phases): [(arch, variant, Popen, its stdout
+    file, its stderr file)], the output in unnamed temporary files (a pipe
+    left unread would stall them)."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    started = []
+    for arch, variant in SHARDED_PERF:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        started.append((arch, variant, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.perf", "--arch", arch,
+             "--shape", "train_4k"] + (["--variant", variant] if variant
+                                       else []),
+            stdout=out, stderr=err, env=env, cwd=str(ROOT)), out, err))
+    return started
+
+
+def _read_all(f) -> str:
+    f.seek(0)
+    return f.read()
+
+
+def phase_sharded(torch, device, perf=None):
+    """The sharded LM step on the card (module constants SHARDED_*): one
+    nccl rank and a (1, 1) DeviceMesh; danube's dense step and OLMoE's MoE
+    step, plain against DTensor; a checkpoint round trip of the sharded
+    state, restored with shardings= onto the mesh, bit for bit; then
+    launch/perf.py's cells (`perf`, from `start_perf`, started here where
+    not given), their collective bytes printed. Returns the flash launches
+    of the DTensor runs."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch.mesh import Mesh, lay_over, process_group
+    from repro_torch.models import lm
+    from repro_torch.sharding import rules
+    from repro_torch.train import trainer
+
+    t0 = time.perf_counter()
+    out = {"phase": "sharded"}
+    perf = perf if perf is not None else start_perf()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    launches = {}
+    try:
+        with process_group("nccl", 1, 0, f"file://{tmp}/store"):
+            mesh = lay_over(Mesh({"data": 1, "model": 1}), "cuda")
+            dc = DataConfig(vocab_size=0, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH)
+            tc = trainer.TrainConfig(lr=1e-3, warmup=1, total_steps=10,
+                                     remat=TRAIN_REMAT)
+            for name, arch, kind, steps in (
+                    ("dense", TRAIN_ARCH, "swa", SHARDED_STEPS),
+                    ("moe", "olmoe-1b-7b", "full_moe", SHARDED_MOE_STEPS)):
+                cfg = get_config(arch)
+                cfg = dataclasses.replace(
+                    cfg, segments=(((kind,), SHARDED_LAYERS),))
+                torch.use_deterministic_algorithms(name == "moe",
+                                                   warn_only=True)
+                try:
+                    got, state = _sharded_pair(
+                        torch, device, cfg, tc, steps, mesh,
+                        dataclasses.replace(dc, vocab_size=cfg.vocab_size))
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                got["deterministic_algorithms"] = name == "moe"
+                got["arch"] = arch
+                want = {"megastep": 0, "raster": 0,
+                        "flash": TRAIN_FLASH_PER_LAYER * SHARDED_LAYERS * steps}
+                if (got["launches"] != want
+                        or max(got["max_abs_diff"].values()) > SHARDED_TOL):
+                    raise AssertionError(f"sharded {name}: {got}, launches "
+                                         f"want {want}")
+                launches[name] = got["launches"]["flash"]
+                if name == "dense":
+                    params = state[0]
+                    mgr = CheckpointManager(f"{tmp}/ckpt")
+                    mgr.save(1, params)
+                    template = lm.tree_map(
+                        lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device="meta"), params)
+                    sh = rules.to_shardings(rules.param_specs(template, mesh),
+                                            mesh)
+                    back = mgr.restore(template, shardings=sh)
+                    exact = all(
+                        torch.equal(a.full_tensor(), b.full_tensor())
+                        and tuple(a.placements) == tuple(b.placements)
+                        for a, b in zip(lm.tree_leaves(back),
+                                        lm.tree_leaves(params)))
+                    got["checkpoint_round_trip_exact"] = exact
+                    if not exact:
+                        raise AssertionError("sharded: the checkpoint round "
+                                             "trip is not bit for bit")
+                    del back, params
+                del state
+                gc.collect()
+                torch.cuda.empty_cache()
+                out[name] = got
+                emit({"phase": f"sharded_{name}", **got})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cells = []
+    for arch, variant, proc, out_f, err_f in perf:
+        proc.wait(timeout=600)
+        stdout, stderr = _read_all(out_f), _read_all(err_f)
+        if proc.returncode != 0:
+            raise AssertionError(f"perf {arch} {variant!r}: rc "
+                                 f"{proc.returncode}\n{stderr[-2000:]}")
+        res = json.loads(stdout)
+        if not res["sharded"] or not res["collective_bytes_per_device"]:
+            raise AssertionError(f"perf {arch} {variant!r}: {res}")
+        cells.append({k: res[k] for k in (
+            "arch", "shape", "variant", "compile_s", "flops_per_device",
+            "bytes_per_device", "collective_bytes_per_device", "compute_s",
+            "memory_s", "collective_s", "score_traffic_s", "memory_s_flash",
+            "bound_s", "bound_s_flash", "temp_gib", "args_gib",
+            "flash_launches", "mesh", "ceilings")})
+        emit({"phase": "sharded_perf", **cells[-1]})
+    out["perf"] = cells
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "sharded", "seconds": out["seconds"],
+          "launches": launches})
+    return launches
+
+
 def phase_ssm_profile(torch, device):
     """Where a recurrent prefill's time goes, not run by main(): profiler
     windows over one prefill of zamba2-2.7B and of xLSTM-350M at 2,048
@@ -4644,6 +4874,7 @@ def main() -> int:
     name, smi = phase_device(torch)
     bw, flops, bf16_flops = card_row(name)
     phase_build()
+    perf = start_perf()
     flash_err, timed_flash = phase_attention(torch, device, bw, flops,
                                              bf16_flops)
     flash = timed_flash["lm"]
@@ -4655,6 +4886,7 @@ def main() -> int:
     ssm_err, ssm_out = phase_ssm(torch, device)
     whisper_err, whisper_out = phase_whisper(torch, device)
     train_out = phase_lm_train(torch, device, bw, flops, bf16_flops)
+    sharded_launches = phase_sharded(torch, device, perf)
     flash_err = max(flash_err, lm_err, mla_err, absorbed_err, moe_err, ssm_err,
                     whisper_err)
     flash_paths = {"lm": lm_out["serve"]["launches"]["flash"],
@@ -4664,7 +4896,8 @@ def main() -> int:
                    "ssm": sum(ssm_out[a]["serve"]["launches"]["flash"]
                               for a in SSM_ARCHS),
                    "whisper": whisper_out["run"]["launches_total"],
-                   "train": train_out["run"]["launches"]["flash"]}
+                   "train": train_out["run"]["launches"]["flash"],
+                   "sharded": sum(sharded_launches.values())}
     mega_err = phase_kernel(torch, device)
     raster_err, grid_raster = phase_raster(torch, device, bw, flops)
     pools, vmap_pools, render_pools, launches = phase_main(torch, device, sync)

@@ -16,6 +16,13 @@ compiles none, so a cell's work is counted from what one step runs:
     convolutions), their bytes as XLA counts "bytes accessed": each op's
     operand and output bytes (views and allocations move nothing).
 
+Under DTensor (a step sharded over a mesh) every count is one device's:
+the counting modes let DTensor's dispatch through and count the ops it
+runs on the rank's local shards, the collectives it issues apart, by kind
+(`_c10d_functional` all-gather, reduce-scatter, all-reduce, all-to-all:
+their operand bytes), and none of the ops DTensor runs on stand-in
+tensors to work out an output's global shape.
+
 Per env step (env steps of one launch: the batch, times the rollout of a
 PPO update): flops and bytes, the roofline position against the ceilings
 of an NVIDIA H100 SXM5 80GB at its 700 W power limit (its data sheet:
@@ -85,35 +92,153 @@ def threshold_for(family: str,
     return (thresholds or DEFAULT_THRESHOLDS).get(family, FALLBACK_THRESHOLD)
 
 
-class _BytesMode(TorchDispatchMode):
-    """Operand and output bytes of every aten op that moves data."""
+#: DTensor's collectives (torch.ops._c10d_functional), by kind
+COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+               "all_gather_into_tensor_coalesced": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "reduce_scatter_tensor_coalesced": "reduce-scatter",
+               "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+               "all_to_all_single": "all-to-all"}
+#: the kinds, in JAX's report order
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all")
 
-    def __init__(self):
+
+def _has_dtensor(args, kwargs) -> bool:
+    from repro_torch.kernels import is_dtensor
+
+    return any(is_dtensor(x) for x in tree_leaves((args, kwargs)))
+
+
+class _Propagating:
+    """Whether DTensor is running an op on stand-in tensors to work out
+    its output's global shape (not work of the step: not counted)."""
+
+    depth = 0
+
+
+@contextlib.contextmanager
+def _unpropagated():
+    """Mark DTensor's output-shape propagation while counting (its
+    `ShardingPropagator._propagate_tensor_meta[_non_cached]`, private API:
+    patched for the block, put back after). Nothing where DTensor is not
+    loaded."""
+    import sys
+
+    if "torch.distributed.tensor" not in sys.modules:
+        yield
+        return
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    names = [n for n in ("_propagate_tensor_meta_non_cached",
+                         "_propagate_tensor_meta")
+             if hasattr(ShardingPropagator, n)]
+    if not names:
+        raise RuntimeError(
+            "counting under DTensor marks DTensor's output-shape propagation "
+            "(torch.distributed.tensor._sharding_prop.ShardingPropagator."
+            "_propagate_tensor_meta[_non_cached], private API), which this "
+            "PyTorch lacks")
+    saved = {n: getattr(ShardingPropagator, n) for n in names}
+
+    def marked(orig):
+        def run(self, *args, **kwargs):
+            _Propagating.depth += 1
+            try:
+                return orig(self, *args, **kwargs)
+            finally:
+                _Propagating.depth -= 1
+        return run
+
+    for n, orig in saved.items():
+        setattr(ShardingPropagator, n, marked(orig))
+    try:
+        yield
+    finally:
+        for n, orig in saved.items():
+            setattr(ShardingPropagator, n, orig)
+
+def _flop_counter():
+    """`FlopCounterMode` whose dispatch mode lets DTensors through (their
+    local ops come back to it) and skips DTensor's shape propagation."""
+    from torch.utils.flop_counter import FlopCounterMode, _FlopCounterMode
+
+    class _ShardFlops(_FlopCounterMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if _has_dtensor(args, kwargs):
+                return NotImplemented
+            if _Propagating.depth:
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    class _Counter(FlopCounterMode):
+        def __enter__(self):
+            super().__enter__()
+            self.mode.__exit__(None, None, None)
+            self.mode = _ShardFlops(self)
+            self.mode.__enter__()
+            return self
+
+    return _Counter(display=False)
+
+
+def _is_score(x, kv_len) -> bool:
+    """A score-shaped tensor: f32, rank >= 4, last dim the kv length."""
+    return (kv_len is not None and x.dtype == torch.float32 and x.dim() >= 4
+            and x.shape[-1] == kv_len)
+
+
+class _BytesMode(TorchDispatchMode):
+    """Operand and output bytes of every aten op that moves data (those of
+    score-shaped tensors, where `kv_len` is given, also apart), and the
+    operand bytes of every collective, by kind."""
+
+    def __init__(self, kv_len: Optional[int] = None):
         super().__init__()
         self.bytes = 0
+        self.score_bytes = 0
+        self.kv_len = kv_len
+        self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _has_dtensor(args, kwargs):
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
-        if func.__name__.split(".")[0] not in NO_DATA_OPS:
-            self.bytes += sum(x.numel() * x.element_size()
-                              for x in tree_leaves((args, kwargs, out))
-                              if isinstance(x, torch.Tensor))
+        if _Propagating.depth:
+            return out
+        name = func.__name__.split(".")[0]
+        if func.namespace == "_c10d_functional":
+            kind = COLLECTIVES.get(name)
+            if kind is not None:
+                self.collectives[kind] += sum(
+                    x.numel() * x.element_size()
+                    for x in tree_leaves(args[0]) if isinstance(x, torch.Tensor))
+            return out
+        if name not in NO_DATA_OPS:
+            for x in tree_leaves((args, kwargs, out)):
+                if isinstance(x, torch.Tensor):
+                    n = x.numel() * x.element_size()
+                    self.bytes += n
+                    if _is_score(x, self.kv_len):
+                        self.score_bytes += n
         return out
 
 
 @contextlib.contextmanager
-def counting():
+def counting(kv_len: Optional[int] = None):
     """Count the work of what runs inside: yields a dict filled on exit
     with each kernel's launches and summed `cost` ({name: {"launches", ...
-    the cost's keys}}), "aten_flops" and "aten_bytes"."""
-    from torch.utils.flop_counter import FlopCounterMode
-
+    the cost's keys}}), "aten_flops" and "aten_bytes", "score_bytes" (of
+    the aten bytes, those through score-shaped tensors: f32, rank >= 4,
+    last dim `kv_len`) and "collectives" ({kind: operand bytes}, with
+    "total"). Under DTensor, one device's counts (module docstring)."""
     from repro_torch import kernels
 
     saved, log, out = kernels.COST_LOG, [], {}
     kernels.COST_LOG = log
     try:
-        with FlopCounterMode(display=False) as flops, _BytesMode() as nbytes:
+        with _unpropagated(), _flop_counter() as flops, \
+                _BytesMode(kv_len) as nbytes:
             yield out
     finally:
         kernels.COST_LOG = saved
@@ -124,6 +249,15 @@ def counting():
             row[k] = row.get(k, 0) + v
     out["aten_flops"] = int(flops.get_total_flops())
     out["aten_bytes"] = int(nbytes.bytes)
+    out["score_bytes"] = int(nbytes.score_bytes)
+    out["collectives"] = dict(nbytes.collectives,
+                              total=sum(nbytes.collectives.values()))
+
+
+def kernel_rows(counted: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The kernels' rows of a `counting()` result."""
+    return {k: v for k, v in counted.items()
+            if isinstance(v, dict) and k != "collectives"}
 
 
 def work_of(counted: Dict[str, Any]) -> Tuple[float, float]:
@@ -132,11 +266,10 @@ def work_of(counted: Dict[str, Any]) -> Tuple[float, float]:
     ops'."""
     flops = float(counted["aten_flops"])
     nbytes = float(counted["aten_bytes"])
-    for name, row in counted.items():
-        if isinstance(row, dict):
-            flops += sum(row.get(k, 0) for k in ("int_ops", "float_ops",
-                                                 "ops", "flops"))
-            nbytes += row.get("bytes", 0)
+    for row in kernel_rows(counted).values():
+        flops += sum(row.get(k, 0) for k in ("int_ops", "float_ops", "ops",
+                                             "flops"))
+        nbytes += row.get("bytes", 0)
     return flops, nbytes
 
 
@@ -174,8 +307,7 @@ def _record(row: Dict[str, Any], counted: Dict[str, Any], steps: int,
                arithmetic_intensity=flops / nbytes if nbytes else 0.0,
                peak_live_bytes=peak, roofline=rl,
                static_impact=static_impact(rl["bound_s"]),
-               kernels={k: v for k, v in counted.items()
-                        if isinstance(v, dict)},
+               kernels=kernel_rows(counted),
                aten={"flops": counted["aten_flops"],
                      "bytes": counted["aten_bytes"]})
     return row

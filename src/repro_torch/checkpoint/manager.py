@@ -14,7 +14,14 @@ Format: one directory per step containing
                     arrays)
 
 Arrays are stored gathered (whole-batch numpy), so a checkpoint written
-from a pool over two devices restores onto one, or onto the CPU.
+from a pool over two devices restores onto one, or onto the CPU. A tree
+of DTensors (a state sharded over a mesh) is gathered the same way: every
+rank joins each leaf's `full_tensor()`, rank 0 writes, and every rank
+waits for the write at a barrier (in `save`, or in `wait` after a
+non-blocking save). `restore(template, step, shardings=)` lays each leaf
+out on any mesh (`sharding.rules.to_shardings`), so a checkpoint written
+by the JAX package, by the port on one device or by a sharded run
+restores into each of the others.
 
 Writes are atomic (a tmp dir, then `os.replace`), so a preemption mid-save
 never corrupts the latest checkpoint; `save(..., blocking=False)` runs the
@@ -107,22 +114,58 @@ def structure(tree: Pytree) -> str:
 
 
 def _host_copy(leaf) -> np.ndarray:
-    """A host copy of one leaf, complete when this returns."""
+    """A host copy of one leaf, complete when this returns (a DTensor's
+    whole value: a collective every rank of its mesh joins)."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy().copy()
     return np.array(leaf, copy=True)
+
+
+def _is_dtensor(x) -> bool:
+    from repro_torch.kernels import is_dtensor
+
+    return is_dtensor(x)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _flatten(tree: Pytree) -> Dict[str, np.ndarray]:
     return {path: _host_copy(leaf) for path, leaf in flatten_with_path(tree)}
 
 
-def _as_template(arr: np.ndarray, leaf):
+def _as_template(arr: np.ndarray, leaf, sharding=None):
     """`arr` in `leaf`'s dtype, as a tensor on the leaf's device where the
-    leaf is a tensor."""
+    leaf is a tensor; a DTensor laid out by `sharding` where one is given
+    (`sharding.rules.Sharding`), or as the leaf is where the leaf is a
+    DTensor."""
+    from repro_torch.sharding import rules
+
+    if sharding is None and _is_dtensor(leaf):
+        sharding = rules.Sharding(leaf.device_mesh, tuple(leaf.placements))
     if isinstance(leaf, torch.Tensor):
         dtype = torch.empty((), dtype=leaf.dtype).numpy().dtype
-        return torch.as_tensor(arr.astype(dtype), device=leaf.device)
+        device = leaf.device
+        if sharding is not None:
+            from repro_torch.runtime.elastic import _mesh_device
+
+            device = _mesh_device(sharding.mesh)
+        t = torch.as_tensor(arr.astype(dtype), device=device)
+        return t if sharding is None else rules.distribute(t, sharding)
+    if sharding is not None:
+        raise TypeError("a sharding for a non-tensor template leaf")
     return arr.astype(np.asarray(leaf).dtype)
 
 
@@ -135,6 +178,8 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._closed = False
+        #: a sharded save whose write every rank still waits for
+        self._sharded_pending = False
         #: test seam: called with the tmp path between the fully written tmp
         #: dir and the atomic os.replace (the mid-save preemption window)
         self._pre_replace_hook: Optional[Callable[[str], None]] = None
@@ -145,6 +190,7 @@ class CheckpointManager:
         if self._closed:
             raise RuntimeError(f"CheckpointManager({self.directory}) is closed")
         self.wait()  # serialize: one write in flight, errors surface here
+        sharded = any(_is_dtensor(x) for _, x in flatten_with_path(tree))
         flat = _flatten(tree)  # gather on the caller thread (device -> host)
         schema = {
             "step": step,
@@ -172,8 +218,17 @@ class CheckpointManager:
                 os.replace(tmp, final)
                 self._gc()
 
+        if sharded:
+            # every rank gathered; rank 0 writes, the others meet it at
+            # the barrier
+            self._sharded_pending = True  # repro: allow[unguarded-mutation] owner thread only, as _closed: save()/wait() run on one owner thread
+            if _rank() != 0:
+                if blocking:
+                    self.wait()
+                return os.path.join(self.directory, f"step_{step:010d}")
         if blocking:
             write()
+            self.wait()
         else:
             # non-daemon: interpreter exit joins the write instead of
             # dropping it mid-file
@@ -191,10 +246,14 @@ class CheckpointManager:
             self._error = e
 
     def wait(self) -> None:
-        """Join the in-flight write; re-raise its error, if any."""
+        """Join the in-flight write; re-raise its error, if any. After a
+        sharded save every rank meets at a barrier here."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None  # repro: allow[unguarded-mutation] owner-thread bookkeeping; join() above is the happens-before for _error
+        if self._sharded_pending:
+            self._sharded_pending = False  # repro: allow[unguarded-mutation] owner thread only, after join()
+            _barrier()
         if self._error is not None:
             # repro: allow[unguarded-mutation] owner thread only, after join()
             err, self._error = self._error, None
@@ -243,22 +302,31 @@ class CheckpointManager:
         with open(path) as f:
             return json.load(f)
 
-    def restore(self, template: Pytree, step: Optional[int] = None) -> Pytree:
+    def restore(self, template: Pytree, step: Optional[int] = None,
+                shardings: Optional[Pytree] = None) -> Pytree:
         """Restore into `template`'s structure and dtypes: numpy leaves for
         numpy template leaves, tensors on the template leaf's device for
         tensor leaves (so a checkpoint written from the card restores onto
-        the CPU, and back)."""
+        the CPU, and back). `shardings` (a tree of
+        `sharding.rules.Sharding`s in the template's structure, such as
+        `rules.to_shardings(rules.param_specs(template, mesh), mesh)`) may
+        target ANY mesh: each leaf becomes a DTensor laid out by its own,
+        every rank of the mesh keeping its shard. A DTensor template leaf
+        with no sharding given is laid out as it is."""
         path = self._step_path(step)
+        by_path = (dict(flatten_with_path(shardings))
+                   if shardings is not None else {})
         with np.load(os.path.join(path, "arrays.npz")) as data:
             def load(key, leaf):
                 if key not in data:
                     raise KeyError(f"checkpoint missing leaf {key}")
                 arr = data[key]
-                if tuple(arr.shape) != tuple(np.shape(leaf)):
+                want = tuple(leaf.shape if isinstance(leaf, torch.Tensor)
+                             else np.shape(leaf))
+                if tuple(arr.shape) != want:
                     raise ValueError(f"shape mismatch at {key}: ckpt "
-                                     f"{arr.shape} vs template "
-                                     f"{tuple(np.shape(leaf))}")
-                return _as_template(arr, leaf)
+                                     f"{arr.shape} vs template {want}")
+                return _as_template(arr, leaf, by_path.get(key))
 
             return map_with_path(load, template)
 

@@ -5,6 +5,7 @@
 - attention/ : flash GQA attention for the LM stack's prefill
 - build.py : nvcc build of csrc/*.cu, loaded with ctypes
 """
+import torch
 
 
 def launch_counters():
@@ -31,13 +32,30 @@ def log_cost(name: str, thunk) -> None:
         COST_LOG.append((name, thunk))
 
 
+def is_dtensor(x) -> bool:
+    """Whether `x` is a DTensor (importing torch.distributed only once a
+    tensor subclass is seen)."""
+    if type(x) is torch.Tensor or not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def plain(fn, *args, **kwargs):
     """`fn(*args, **kwargs)`, a kernel's plain twin. While counting, the
     counting dispatch modes are off for it: the kernel's `cost` stands for
-    its work, as it does for the launch on the card."""
+    its work, as it does for the launch on the card. On fake tensors
+    (analysis/cost.py's counts of a step on a described mesh) the fake mode
+    stays on, so nothing is computed or allocated."""
     if COST_LOG is None:
         return fn(*args, **kwargs)
+    from torch._guards import detect_fake_mode
     from torch.utils._python_dispatch import _disable_current_modes
 
+    fake = detect_fake_mode(args)
     with _disable_current_modes():
-        return fn(*args, **kwargs)
+        if fake is None:
+            return fn(*args, **kwargs)
+        with fake:
+            return fn(*args, **kwargs)

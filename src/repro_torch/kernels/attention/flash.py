@@ -56,6 +56,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     > 0). `scale` defaults to D ** -0.5. A (D, Dv) pair the kernels are not
     built for (`HEAD_DIMS`) raises NotImplementedError: nothing runs the
     plain version in its place."""
+    from repro_torch.kernels import is_dtensor
+
+    for x in (q, k, v):
+        if is_dtensor(x):
+            # ops.attention runs the kernel on each rank's shard; nothing
+            # gathers a DTensor whole for it
+            raise TypeError(f"flash_attention_cuda takes one device's "
+                            f"tensors; got a DTensor ({x.placements})")
     # shapes and head dims first: a pair the kernels are not built for is
     # refused as such on any device
     if not all(x.dim() == 4 for x in (q, k, v)):

@@ -16,6 +16,13 @@ and its backward is `attention_backward`, the JAX package's plain
 recompute, chunk by chunk, on either device. It is taken only where grad
 mode is on and an input requires grad; otherwise a call launches exactly
 what it launched before.
+
+DTensors (a step sharded over a `DeviceMesh`) run the same dispatch on
+each rank's local shard, through `local_map` (`_sharded`): batch over the
+data axes, heads over "model". The kernel on the card, or the plain
+version on the CPU, sees plain local tensors; the cost it logs is the
+shard's, one device's work. A DTensor is never gathered into a full
+tensor here, and the kernel's wrapper refuses one.
 """
 from __future__ import annotations
 
@@ -128,41 +135,126 @@ def attention_backward(q, k, v, do, *, causal: bool = True, window: int = 0,
 class _Attention(torch.autograd.Function):
     """The forward of `attention` (the kernel or the plain version, as
     dispatched), the backward `attention_backward` from the saved q, k and
-    v."""
+    v, `q_chunk` query rows at a time."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kernel, causal, window, q_offset, scale):
+    def forward(ctx, q, k, v, kernel, causal, window, q_offset, scale,
+                q_chunk):
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
                       scale=scale)
+        ctx.q_chunk = q_chunk
         return _forward(q, k, v, kernel, **ctx.kw)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
+        q_chunk = Q_CHUNK if ctx.q_chunk is None else ctx.q_chunk
         with torch.profiler.record_function("attention::backward"):
-            grads = attention_backward(q, k, v, do, q_chunk=Q_CHUNK, **ctx.kw)
-        return grads + (None,) * 5
+            grads = attention_backward(q, k, v, do, q_chunk=q_chunk, **ctx.kw)
+        return grads + (None,) * 6
+
+
+def _local(q, k, v, kernel: bool, q_chunk: int, kw) -> torch.Tensor:
+    """One device's attention: the differentiable form where grad mode is
+    on and an input requires grad, the dispatch alone otherwise."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _Attention.apply(q, k, v, kernel, kw["causal"], kw["window"],
+                                kw["q_offset"], kw["scale"], q_chunk)
+    return _forward(q, k, v, kernel, **kw)
+
+
+def _head_range(heads: int, mesh, placements):
+    """(first head, heads) of this rank's shard of dim 1 (`heads` long, even
+    over every mesh dim that shards it) under `placements`."""
+    from torch.distributed.tensor import Shard
+
+    first, coord = 0, mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p == Shard(1):
+            heads //= mesh.size(i)
+            first += coord[i] * heads
+    return first, heads
+
+
+def _sharded(q, k, v, kernel: bool, q_chunk: int, kw) -> torch.Tensor:
+    """`attention` of DTensors q, k and v: `_local` on each rank's shard.
+
+    Per mesh dim: where q shards the batch, so do k and v; where q shards
+    its heads, k and v shard theirs if their head count divides that mesh
+    dim, and are replicated otherwise (GQA with fewer KV heads than the
+    "model" axis: Yi-6B's 4 over 16), each rank then reading the KV heads
+    of its own query heads. A GQA group is never split unevenly: where a
+    rank's query heads would not line up with whole groups, or with one
+    part of one group, the heads are replicated on that mesh dim instead.
+    Anything else (a partial sum, another sharded dim) is replicated first.
+    The gradient of a replicated K or V is a partial sum on the mesh dims
+    where the query heads were split, and whole where the work was the same
+    on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.rules import placed
+
+    mesh = q.device_mesh
+    hq, hkv = q.shape[1], k.shape[1]
+    group = hq // hkv
+    qp, kp, gp = [], [], []
+    rows, q_left, kv_left = q.shape[0], hq, hkv
+    for i, pl in enumerate(q.placements):
+        size = mesh.size(i)
+        if pl == Shard(0) and rows % size == 0:
+            rows //= size
+            qp.append(Shard(0)), kp.append(Shard(0)), gp.append(Shard(0))
+        elif pl == Shard(1) and q_left % size == 0:
+            q_left //= size
+            kv = Shard(1) if kv_left % size == 0 else Replicate()
+            kv_left //= size if kv == Shard(1) else 1
+            qp.append(Shard(1)), kp.append(kv)
+            gp.append(kv if kv == Shard(1) else Partial())
+        else:
+            qp.append(Replicate()), kp.append(Replicate())
+            gp.append(Replicate())
+    q_lo, q_n = _head_range(hq, mesh, qp)
+    aligned = (q_lo % group == 0 and q_n % group == 0 if q_n >= group else
+               group % q_n == 0 and q_lo // group == (q_lo + q_n - 1) // group)
+    if not aligned:  # replicate the heads rather than split a group
+        qp = [Replicate() if p == Shard(1) else p for p in qp]
+        kp = [Replicate() if p == Shard(1) else p for p in kp]
+        gp = [Replicate() if p in (Shard(1), Partial()) else p for p in gp]
+        q_lo, q_n = 0, hq
+    k_lo, _ = _head_range(hkv, mesh, kp)
+    first, last = q_lo // group, (q_lo + q_n - 1) // group
+    heads = slice(first - k_lo, last + 1 - k_lo)
+    q, k, v = placed(q, qp), placed(k, kp), placed(v, kp)
+
+    def body(ql, kl, vl):
+        return _local(ql, kl[:, heads], vl[:, heads], kernel, q_chunk, kw)
+
+    return local_map(body, out_placements=qp, in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, gp, gp), device_mesh=mesh)(q, k, v)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, q_offset: int = 0,
-              scale: float | None = None, backend: str = "auto") -> torch.Tensor:
+              scale: float | None = None, backend: str = "auto",
+              q_chunk: int | None = None) -> torch.Tensor:
     """Multi-head GQA attention: q (B, Hq, Lq, D) over k (B, Hkv, Lk, D) and
     v (B, Hkv, Lk, Dv) -> (B, Hq, Lq, Dv); `scale` defaults to D ** -0.5.
     On the card a (D, Dv) pair the kernel is not built for is zero-padded
     to a built one where both dims are at most `PAD_LIMIT` (`padded_pair`)
     and raises NotImplementedError otherwise (flash.HEAD_DIMS). Differentiable: with grad mode
-    on and an input requiring grad, the gradient is `attention_backward`."""
+    on and an input requiring grad, the gradient is `attention_backward`,
+    `q_chunk` query rows at a time (None: `Q_CHUNK` when the backward
+    runs). DTensors run on each rank's shard (`_sharded`)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
     kernel = backend == "cuda" or (backend == "auto" and q.is_cuda)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _Attention.apply(q, k, v, kernel, causal, window, q_offset,
-                                scale)
-    return _forward(q, k, v, kernel, causal=causal, window=window,
-                    q_offset=q_offset, scale=scale)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    if kernels.is_dtensor(q):
+        return _sharded(q, k, v, kernel, q_chunk, kw)
+    return _local(q, k, v, kernel, q_chunk, kw)
 
 
 __all__ = ["BACKENDS", "PAD_LIMIT", "Q_CHUNK", "attention", "attention_backward",

@@ -17,8 +17,11 @@ tensors on the "meta" device, and the report counts
     for each attention call (analysis/cost.py::counting); per device is
     the even split over the mesh. A step that cannot run on meta tensors
     gives null, with the reason;
-  - collective bytes: null. They come from XLA's per-device HLO, and the
-    port lowers none.
+  - with `flops=True`, collective bytes per device: for the train cells
+    that run sharded (launch/perf.py: the dense GQA and MoE families), the
+    operand bytes of the collectives DTensor issues for the step on the
+    production mesh as a described mesh (fake process group, fake
+    tensors), by kind; elsewhere null, with perf's reason.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single
@@ -73,18 +76,25 @@ def sharded_bytes(tree, specs, mesh) -> int:
                * x.element_size() for x, s in zip(leaves, spec_leaves))
 
 
-def build_cell(arch: str, shape: ShapeConfig, mesh) -> Dict[str, Any]:
-    """{name: (tree, specs)} of one cell's state, every tensor on meta."""
+#: the dry run's train step: the JAX dry run's remat, no accumulation
+DRY_RUN_TRAIN = dict(remat="full", accum_steps=1)
+
+
+def build_cell(arch: str, shape: ShapeConfig, mesh, *, cfg=None, tc=None,
+               seq_shard_decode: bool = False) -> Dict[str, Any]:
+    """{name: (tree, specs)} of one cell's state, every tensor on meta;
+    `cfg` and `tc` default to the arch's config and `DRY_RUN_TRAIN`, and
+    `seq_shard_decode` shards a decode cache's sequence over "model"
+    where its heads are not (launch/perf.py's knob)."""
     from repro_torch.models import lm
     from repro_torch.train.trainer import TrainConfig, make_optimizer
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     params = meta_params(cfg)
     state = {"params": (params, rules.param_specs(params, mesh))}
     batch = input_specs(cfg, shape)
     if shape.kind == "train":
-        opt = make_optimizer(TrainConfig(remat="full", accum_steps=1)).init(
-            params)
+        opt = make_optimizer(tc or TrainConfig(**DRY_RUN_TRAIN)).init(params)
         state["opt"] = (opt, rules.opt_specs(opt, params, mesh))
         state["batch"] = (batch, rules.batch_specs(mesh, batch))
         return state
@@ -93,26 +103,31 @@ def build_cell(arch: str, shape: ShapeConfig, mesh) -> Dict[str, Any]:
         return state
     b = shape.global_batch
     caches = lm.init_cache(cfg, b, shape.seq_len, META)
-    state["caches"] = (caches, rules.cache_specs(mesh, caches, b,
-                                                 seq_sharded=b == 1))
+    cspec = rules.cache_specs(mesh, caches, b, seq_sharded=b == 1)
+    if seq_shard_decode:
+        from repro_torch.launch.perf import _seq_shard_over_model
+
+        cspec = _seq_shard_over_model(cspec, caches, mesh)
+    state["caches"] = (caches, cspec)
     state["batch"] = (batch, rules.batch_specs(mesh, batch))
     return state
 
 
-def step_flops(arch: str, shape: ShapeConfig, state) -> Dict[str, Any]:
-    """FLOPs of the cell's step on meta tensors: aten ops plus the flash
-    cost of each attention call."""
-    from repro_torch.analysis.cost import counting
+def step_flops(arch: str, shape: ShapeConfig, state, *, cfg=None, tc=None,
+               ce_chunk: int = 512, q_chunk: int = 512) -> Dict[str, Any]:
+    """FLOPs (and bytes) of the cell's step on meta tensors: aten ops plus
+    the flash cost of each attention call."""
+    from repro_torch.analysis.cost import counting, work_of
     from repro_torch.models import lm
     from repro_torch.train.trainer import TrainConfig, make_train_step
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     params = state["params"][0]
     batch = state["batch"][0]
-    with counting() as counted:
+    with counting(kv_len=shape.seq_len) as counted:
         if shape.kind == "train":
-            step = make_train_step(cfg, TrainConfig(remat="full",
-                                                    accum_steps=1))
+            step = make_train_step(cfg, tc or TrainConfig(**DRY_RUN_TRAIN),
+                                   ce_chunk=ce_chunk, q_chunk=q_chunk)
             step(params, state["opt"][0], batch)
         elif shape.kind == "prefill":
             with torch.no_grad():
@@ -125,7 +140,9 @@ def step_flops(arch: str, shape: ShapeConfig, state) -> Dict[str, Any]:
     return {"flops": counted["aten_flops"] + flash.get("flops", 0),
             "aten_flops": counted["aten_flops"],
             "flash_flops": flash.get("flops", 0),
-            "flash_launches": flash.get("launches", 0)}
+            "flash_launches": flash.get("launches", 0),
+            "bytes": work_of(counted)[1],
+            "score_bytes": counted["score_bytes"]}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -154,8 +171,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "memory_counted": "params, optimizer state, caches and inputs; "
                           "activations not counted",
         "collective_bytes_per_device": None,
-        "collective_bytes_why": "collective bytes come from XLA's "
-                                "per-device HLO; the port lowers none",
         "active_params": cfg.active_param_count(),
     }
     if flops:
@@ -166,8 +181,31 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             out.update(flops=None, flops_error=f"{type(e).__name__}: "
                        f"{str(e).splitlines()[0][:200] if str(e) else ''}")
         else:
+            got = {k: got[k] for k in ("flops", "aten_flops", "flash_flops",
+                                       "flash_launches")}
             out.update(got, flops_per_device=got["flops"] / mesh.size)
+    out.update(collectives(arch, shape, multi_pod, flops))
     return out
+
+
+def collectives(arch: str, shape: ShapeConfig, multi_pod: bool,
+                run: bool = True, *, mesh=None,
+                reduced: bool = False) -> Dict[str, Any]:
+    """{"collective_bytes_per_device": by kind and "total", or None and
+    "collective_bytes_why"}: launch/perf.py's sharded run of a train cell
+    at its baseline knobs, where the cell runs sharded and `run`."""
+    from repro_torch.launch import perf
+
+    knobs = perf.parse_variant("")
+    why = perf.unsharded_reason(perf.cell_config(arch, knobs, reduced), shape)
+    if why is None and not run:
+        why = "not counted: the step was not run (flops=False)"
+    if why is not None:
+        return {"collective_bytes_per_device": None,
+                "collective_bytes_why": why}
+    got = perf.sharded_counts(arch, shape, knobs, multi_pod, mesh=mesh,
+                              reduced=reduced)
+    return {"collective_bytes_per_device": got["collectives"]}
 
 
 def main(argv: Optional[list] = None) -> int:

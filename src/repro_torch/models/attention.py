@@ -17,8 +17,10 @@ sliding-window blocks keep S_max = window and write at `pos % window`
 c_kv (B, S_max, kv_lora_rank) and the shared rotary key (B, S_max, rope).
 Unlike the JAX package's functional updates, the cache tensors are written
 IN PLACE and returned: `gqa_apply` and `mla_apply` mutate the cache they
-are given. The JAX package's `shard_hint` layout pins have no meaning on
-one card and are dropped.
+are given. The JAX package's `shard_hint` layout pins stand where it puts
+them in the GQA block (batch over the data axes, heads over "model"); they
+act on DTensors only, and `ops.attention` runs the kernel on each rank's
+shard of DTensor q, k and v.
 
 MLA's naive form expands the latent to per-head keys (nope + rope = 96 at
 MiniCPM3-4B) and values (v_head_dim = 64) and attends through the kernel's
@@ -35,6 +37,8 @@ import torch
 
 from repro_torch.kernels.attention import ops
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.sharding.rules import (BATCH_AXES, matmul, shard_hint,
+                                        split_last)
 
 _NEG = -1e30
 
@@ -124,6 +128,8 @@ def gqa_apply(
     cache_pos=None,                   # absolute position of x[0]: an int or
                                       # 0-d tensor, or (B,) per slot
     causal: bool = True,
+    q_chunk: int | None = None,       # query rows of a backward recompute
+                                      # (None: ops.Q_CHUNK)
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     b, l, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -132,9 +138,9 @@ def gqa_apply(
     per_slot = (cache is not None and isinstance(cache_pos, torch.Tensor)
                 and cache_pos.dim() == 1)
 
-    q = (x @ params["wq"].to(dt)).reshape(b, l, hq, hd)
-    k = (x @ params["wk"].to(dt)).reshape(b, l, hkv, hd)
-    v = (x @ params["wv"].to(dt)).reshape(b, l, hkv, hd)
+    q = split_last(matmul(x, params["wq"].to(dt)), (hq, hd))
+    k = split_last(matmul(x, params["wk"].to(dt)), (hkv, hd))
+    v = split_last(matmul(x, params["wv"].to(dt)), (hkv, hd))
     if cfg.qk_norm:
         q = rms_norm(q, params["q_scale"], cfg.norm_eps)
         k = rms_norm(k, params["k_scale"], cfg.norm_eps)
@@ -142,6 +148,11 @@ def gqa_apply(
     q = apply_rope(q.transpose(1, 2), rope_pos, cfg.rope_theta)    # (B, Hq, L, hd)
     k = apply_rope(k.transpose(1, 2), rope_pos, cfg.rope_theta)    # (B, Hkv, L, hd)
     v = v.transpose(1, 2)
+    # pin the TP layout: batch on (pod, data), heads on model where they
+    # divide it (KV heads that do not are replicated within their group)
+    q = shard_hint(q, BATCH_AXES, "model", None, None)
+    k = shard_hint(k, BATCH_AXES, "model", None, None)
+    v = shard_hint(v, BATCH_AXES, "model", None, None)
 
     new_cache = None
     if cache is not None:
@@ -200,9 +211,12 @@ def gqa_apply(
             o = ops.attention(q, ck, cv, causal=True, window=window,
                               q_offset=int(cache_pos))
     else:
-        o = ops.attention(q, k, v, causal=causal, window=window)
+        o = ops.attention(q, k, v, causal=causal, window=window,
+                          q_chunk=q_chunk)
 
-    out = o.transpose(1, 2).reshape(b, l, hq * hd) @ params["wo"].to(dt)
+    o = shard_hint(o, BATCH_AXES, "model", None, None)
+    out = matmul(o.transpose(1, 2).reshape(b, l, hq * hd), params["wo"].to(dt))
+    out = shard_hint(out, BATCH_AXES, None, None)
     return out, new_cache
 
 

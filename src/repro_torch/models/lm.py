@@ -30,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import (chunked_cross_entropy, dense_init,
                                        embed_init, rms_norm)
 from repro_torch.models.attention import cross_kv
+from repro_torch.sharding.rules import BATCH_AXES, shard_hint
 from repro_torch.models.stack import (check_ported, shared_block_init,
                                       stack_apply, stack_cache_init,
                                       stack_decode, stack_init, stack_prefill)
@@ -157,34 +158,90 @@ def _encode_batch(cfg: ModelConfig, params, batch, remat: str = "none"):
             if cfg.is_encoder_decoder else None)
 
 
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`table[ids]`. For a DTensor table, each rank's rows (`local_map`),
+    as GSPMD partitions the gather: the table's FSDP shards gathered
+    (`gathered`), each rank taking the rows its vocab shard holds and
+    zeros elsewhere, the rows a partial sum over the mesh dims that split
+    the vocab; their gradient lands in the rank's own vocab shard.
+    DTensor's own gather, and its backward's `index_put`, fail on some
+    layouts (torch 2.11: an unnormalized `Shard(-1)`)."""
+    from repro_torch.kernels import is_dtensor
+
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.rules import gathered, placed
+
+    table = gathered(table)
+    mesh = table.device_mesh
+    coord = mesh.get_coordinate()
+    ids = placed(ids, (Replicate(),) * mesh.ndim, mesh) if not is_dtensor(
+        ids) else ids
+    rows = [p == Shard(0) and mesh.size(i) > 1
+            for i, p in enumerate(ids.placements)]
+    vocab, first, width = [], 0, table.shape[0]
+    for i, p in enumerate(table.placements):
+        vocab.append(p == Shard(0) and mesh.size(i) > 1 and not rows[i])
+        if vocab[-1]:
+            width //= mesh.size(i)
+            first += coord[i] * width
+    tp = [Shard(0) if v else Replicate() for v in vocab]
+    ip = [Shard(0) if r else Replicate() for r in rows]
+    op = [Shard(0) if r else Partial() if v else Replicate()
+          for r, v in zip(rows, vocab)]
+    tg = [Partial() if r else Shard(0) if v else Replicate()
+          for r, v in zip(rows, vocab)]
+
+    def body(t, i):
+        if not any(vocab):
+            return t[i]
+        local = i - first
+        mine = (local >= 0) & (local < t.shape[0])
+        return torch.where(mine[..., None], t[torch.where(mine, local, 0)], 0.0)
+
+    return local_map(body, out_placements=op, in_placements=(tp, ip),
+                     in_grad_placements=(tg, ip), device_mesh=mesh)(
+        placed(table, tp), placed(ids, ip))
+
+
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-            remat: str = "none"):
+            remat: str = "none", *, q_chunk: int | None = None):
     """Returns (hidden (B, L, d), aux loss: the MoE blocks' load-balance
     losses summed, an f32 0 for a dense model). An encoder-decoder model
-    reads `batch["frames"]` too."""
+    reads `batch["frames"]` too. `q_chunk` is the query rows the attention
+    backward recomputes at once."""
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    # the rows of the ("model", "data")-sharded embedding for batch-sharded
+    # tokens, pinned to batch-sharded rows: the JAX package's pin here fails
+    # under jax 0.9 (DuplicateSpecError, "data" on two dims); here the
+    # partial rows of the vocab shards are reduced over "model" instead
+    x = embed_rows(params["embed"], tokens.long()).to(_dtype(cfg))
+    x = shard_hint(x, BATCH_AXES, None, None)
     positions = torch.arange(tokens.shape[1], device=x.device)
     x, aux = stack_apply(params["segments"], cfg, cfg.segments, x,
                          positions=positions, shared=params.get("shared"),
                          enc_out=_encode_batch(cfg, params, batch, remat),
-                         remat=remat)
+                         remat=remat, q_chunk=q_chunk)
     return rms_norm(x, params["final_scale"], cfg.norm_eps), aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-            remat: str = "none") -> torch.Tensor:
+            remat: str = "none", *, ce_chunk: int = 512,
+            q_chunk: int | None = None) -> torch.Tensor:
     """The training loss (an f32 scalar): the mean next-token cross entropy
-    of `batch["labels"]` (over `batch["mask"]` where given) plus
-    `AUX_WEIGHT` times the aux loss."""
-    hidden, aux = forward(cfg, params, batch, remat)
+    of `batch["labels"]` (over `batch["mask"]` where given; `ce_chunk`
+    positions of logits at a time) plus `AUX_WEIGHT` times the aux loss."""
+    hidden, aux = forward(cfg, params, batch, remat, q_chunk=q_chunk)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     device = hidden.device
     mask = batch.get("mask")
     ce = chunked_cross_entropy(
         hidden, head, torch.as_tensor(batch["labels"], device=device),
         mask=None if mask is None else torch.as_tensor(mask, device=device),
-        transpose_head=cfg.tie_embeddings)
+        chunk=ce_chunk, transpose_head=cfg.tie_embeddings)
     return ce + AUX_WEIGHT * aux
 
 
@@ -242,6 +299,6 @@ def decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor, pos):
 
 
 __all__ = ["AUX_WEIGHT", "MATRICES", "check_supported", "compute_params",
-           "decode_step", "encode", "forward", "init_cache", "init_params",
+           "decode_step", "embed_rows", "encode", "forward", "init_cache", "init_params",
            "logits_for", "loss_fn", "params_from_numpy", "prefill",
            "tree_leaves", "tree_map"]

@@ -35,6 +35,7 @@ from repro_torch.models.attention import (cross_apply, cross_init, cross_kv,
                                           mla_apply, mla_cache_init, mla_init)
 from repro_torch.models.layers import rms_norm, swiglu_apply, swiglu_init
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.sharding.rules import BATCH_AXES, shard_hint
 from repro_torch.models.ssm import (mamba2_apply, mamba2_cache_init,
                                     mamba2_decode, mamba2_init, mlstm_apply,
                                     mlstm_cache_init, mlstm_decode, mlstm_init,
@@ -98,11 +99,13 @@ def shared_block_init(gen: torch.Generator, cfg, dtype):
 
 # ----------------------------------------------------------------- block apply
 def block_apply(params, cfg, kind: str, x, *, positions, shared=None,
-                enc_out=None, cache=None, cache_pos=None):
+                enc_out=None, cache=None, cache_pos=None,
+                q_chunk: int | None = None):
     """Returns (x, aux_loss, new_cache); only "full_moe" adds an auxiliary
     loss, and only with no cache (forward): prefill and decode read none,
     so it is not computed there (the others' aux is 0.0). A recurrent
-    block's new state is written into `cache`, which is returned."""
+    block's new state is written into `cache`, which is returned.
+    `q_chunk` is the GQA attention backward's query chunk."""
     check_ported(kind)
     aux = 0.0
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
@@ -123,7 +126,8 @@ def block_apply(params, cfg, kind: str, x, *, positions, shared=None,
         self_cache = cache["self"] if kind == "dec" and cache is not None else cache
         o, new_cache = gqa_apply(attn, cfg, h, window=window,
                                  positions=positions, cache=self_cache,
-                                 cache_pos=cache_pos, causal=kind != "enc")
+                                 cache_pos=cache_pos, causal=kind != "enc",
+                                 q_chunk=q_chunk)
     x = x + o
     if kind == "dec":
         h = rms_norm(x, params["ln_x"], cfg.norm_eps)
@@ -211,22 +215,27 @@ def _unstack(tree, rep: int) -> list:
     return [{k: part[i] for k, part in parts.items()} for i in range(rep)]
 
 
-def _layer_apply(lp, x, aux, *, cfg, blocks, positions, shared, enc_out):
-    """One layer's blocks with no cache: (x, aux plus their aux losses)."""
+def _layer_apply(lp, x, aux, *, cfg, blocks, positions, shared, enc_out,
+                 q_chunk):
+    """One layer's blocks with no cache: (x, aux plus their aux losses),
+    the input pinned to batch-sharded rows as the JAX scan body pins it."""
+    x = shard_hint(x, BATCH_AXES, None, None)
     for i, kind in enumerate(blocks):
         x, a, _ = block_apply(lp[f"b{i}"], cfg, kind, x, positions=positions,
-                              shared=shared, enc_out=enc_out)
+                              shared=shared, enc_out=enc_out, q_chunk=q_chunk)
         if isinstance(a, torch.Tensor):
             aux = aux + a
     return x, aux
 
 
 def stack_apply(seg_params, cfg, segments, x, *, positions, shared=None,
-                enc_out=None, remat: str = "none"):
+                enc_out=None, remat: str = "none",
+                q_chunk: int | None = None):
     """Forward with no cache. Returns (x, total aux loss: an f32 scalar),
     summed over the blocks as the JAX package's scan sums it from 0 (0 for
     the dense kinds). `remat` ("none", "dots", "full") sets what each
-    layer keeps for the backward (module docstring)."""
+    layer keeps for the backward (module docstring); `q_chunk` is the
+    attention backward's query chunk."""
     if remat not in REMAT:
         raise ValueError(f"unknown remat {remat!r}; expected one of {REMAT}")
     context = {} if remat != "dots" else dict(context_fn=functools.partial(
@@ -235,7 +244,7 @@ def stack_apply(seg_params, cfg, segments, x, *, positions, shared=None,
     for (blocks, rep), params in zip(segments, seg_params):
         body = functools.partial(_layer_apply, cfg=cfg, blocks=blocks,
                                  positions=positions, shared=shared,
-                                 enc_out=enc_out)
+                                 enc_out=enc_out, q_chunk=q_chunk)
         for lp in _unstack(params, rep):
             if remat == "none":
                 x, aux = body(lp, x, aux)

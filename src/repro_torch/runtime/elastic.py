@@ -4,11 +4,12 @@
 Checkpoints are gathered, whole-batch arrays (checkpoint/manager.py), and
 a pool splits a snapshot over whatever devices it is built on (a
 `ShardedEnvPool` over its tuple of devices), so scaling down after a loss
-is: propose a mesh, rebuild the pool on it, restore. A mesh here is a
+is: propose a mesh, rebuild the pool on it, restore. A pool's mesh is a
 tuple of `torch.device`s. `reshard_state` places a restored state on a
-mesh: on one device every leaf goes there; laying LM parameters over
-several by the sharding rules (`sharding/rules.py`) is not ported, and it
-raises.
+mesh: on one device every leaf goes there; on a `launch/mesh.py::Mesh`
+laid over a process group (or a `DeviceMesh`) every leaf becomes a DTensor
+laid out by the sharding rules (`sharding/rules.py::param_specs`), as the
+JAX package's `device_put` onto `param_shardings`.
 """
 from __future__ import annotations
 
@@ -60,23 +61,45 @@ def build_mesh(n_devices: Optional[int] = None,
 
 
 def reshard_state(state, mesh):
-    """Re-place a (restored) state tree onto `mesh`: a tuple of devices, or
-    a `launch/mesh.py::Mesh` laid over devices. On a one-device mesh every
-    tensor leaf moves to that device. On more devices the JAX package lays
-    each leaf out by `sharding.rules.param_specs`; the port has no
-    sharded tensors to lay them into, so that raises NotImplementedError
-    (ROADMAP: LM parameter sharding across cards)."""
+    """Re-place a (restored) state tree onto `mesh`.
+
+    - a `launch/mesh.py::Mesh` laid over a process group, or a
+      `DeviceMesh`: every tensor leaf becomes a DTensor laid out by
+      `sharding.rules.param_specs` of the whole tree (Adam's mu and nu
+      match their params by name; the step count replicates), each rank
+      keeping its shard of the whole leaf it holds (a gathered checkpoint,
+      a state drawn from one seed). A DTensor leaf is redistributed there,
+      its device mesh kept (moving a DTensor between meshes goes through a
+      gathered checkpoint: `CheckpointManager.restore(shardings=)`);
+    - one device (a tuple of one `torch.device`, or a `Mesh` over it):
+      every tensor leaf moves to that device.
+    A tuple of several devices has no process group to lay a DTensor over,
+    and raises."""
     from torch.utils._pytree import tree_map
 
+    from repro_torch.sharding import rules
+
+    dm = getattr(mesh, "device_mesh", None)
+    if dm is None and not isinstance(mesh, (tuple, list)):
+        dm = mesh                                     # a DeviceMesh
+    if dm is not None:
+        return rules.lay_out(state, dm, _mesh_device(dm))
     devices = tuple(getattr(mesh, "devices", mesh))
     if len(devices) != 1:
-        raise NotImplementedError(
-            f"reshard_state over {len(devices)} devices: laying LM "
-            "parameters over several cards by the sharding rules is not "
-            "ported; one device takes the whole state")
+        raise ValueError(
+            f"reshard_state over {len(devices)} devices needs them laid over "
+            "a process group: a launch/mesh.py::Mesh with its device_mesh "
+            "(launch/mesh.py::lay_over), or a DeviceMesh")
     dev = torch.device(devices[0])
     return tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
                     else x, state)
+
+
+def _mesh_device(dm) -> torch.device:
+    """This rank's device of a `DeviceMesh`: its CUDA card, or the CPU."""
+    if dm.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(dm.device_type)
 
 
 __all__ = ["build_mesh", "propose_mesh", "reshard_state", "visible_devices"]

@@ -16,12 +16,20 @@ apply to every architecture's tree. A spec is a tuple with one entry per
 dim of its leaf: None (replicated), an axis name, or a tuple of axis names
 (what `jax.sharding.PartitionSpec` holds). A mesh is anything with
 `axis_names` and a `shape` mapping axis -> size (`launch/mesh.py::Mesh`,
-or JAX's `AbstractMesh`). The JAX package's `shard_hint` pins activation
-layouts inside jitted code; one card has nothing to pin, so it is not
-ported.
+JAX's `AbstractMesh`, or a `torch.distributed` `DeviceMesh` with named
+dims).
+
+On a `DeviceMesh` a spec becomes DTensor placements, one per mesh dim
+(`to_placements`): `Shard(d)` on each mesh dim that shards tensor dim d,
+`Replicate()` elsewhere. `to_shardings` pairs a spec tree with its mesh as
+`Sharding`s (JAX's `NamedSharding`), which `runtime/elastic.py::
+reshard_state` and `CheckpointManager.restore(shardings=)` lay leaves out
+by. `shard_hint` is the JAX package's activation pin: a redistribute of a
+DTensor to the cleaned spec, a no-op on a plain tensor.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Tuple
 
@@ -29,14 +37,22 @@ from torch.utils._pytree import (MappingKey, SequenceKey, GetAttrKey,
                                  tree_flatten_with_path, tree_map,
                                  tree_unflatten)
 
+from repro_torch.kernels import is_dtensor
+
 Pytree = Any
 Spec = Tuple[Any, ...]
 
 BATCH_AXES = ("pod", "data")
 
 
+def _names(mesh) -> Tuple[str, ...]:
+    """A mesh's axis names: `axis_names`, or a `DeviceMesh`'s dim names."""
+    names = getattr(mesh, "axis_names", None)
+    return tuple(names if names is not None else mesh.mesh_dim_names)
+
+
 def data_axes(mesh) -> Tuple[str, ...]:
-    return tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+    return tuple(a for a in BATCH_AXES if a in _names(mesh))
 
 
 def _entry(axes: Tuple[str, ...]):
@@ -46,11 +62,11 @@ def _entry(axes: Tuple[str, ...]):
 
 
 def fsdp_axis(mesh):
-    return "data" if "data" in mesh.axis_names else None
+    return "data" if "data" in _names(mesh) else None
 
 
 def tp_axis(mesh):
-    return "model" if "model" in mesh.axis_names else None
+    return "model" if "model" in _names(mesh) else None
 
 
 # Shard MoE experts over model only (replicate over data): per-device
@@ -101,13 +117,21 @@ _RULES = (
 )
 
 
+def _sizes(mesh) -> dict:
+    """{axis name: size} of a described mesh or a `DeviceMesh`."""
+    shape = mesh.shape
+    if isinstance(shape, dict):
+        return shape
+    return dict(zip(_names(mesh), shape))
+
+
 def _size(mesh, axis: str) -> int:
-    return int(mesh.shape[axis])
+    return int(_sizes(mesh)[axis])
 
 
 def _spec_for(path: str, name: str, shape, mesh) -> Spec:
     ndim = len(shape)
-    axes_avail = set(mesh.axis_names)
+    axes_avail = set(_names(mesh))
     rules = _RULES
     if _MOE_EP_ONLY[0]:
         rules = (("moe", "w_in", ("model", None, None)),
@@ -234,6 +258,215 @@ def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
-__all__ = ["BATCH_AXES", "batch_specs", "cache_specs", "data_axes",
-           "fsdp_axis", "is_spec", "local_shape", "opt_specs", "param_specs",
-           "set_moe_ep_only", "tp_axis"]
+# -- placements on a DeviceMesh -----------------------------------------------
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def to_placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of `spec` on `mesh` (a `DeviceMesh` with named
+    dims), one per mesh dim: `Shard(d)` on every mesh dim named in spec
+    entry d, `Replicate()` on the rest. An entry of several axes, such as
+    ("pod", "data"), shards its dim over each of them in mesh order, as
+    `NamedSharding` does; like it, a mesh axis shards one tensor dim at
+    most. Axes the mesh lacks raise."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = _names(mesh)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = _axes_of(entry)
+        dims = [names.index(a) if a in names else None for a in axes]
+        if None in dims:
+            raise ValueError(f"spec {spec} names an axis {axes} the mesh "
+                             f"{names} lacks")
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {entry} is not in mesh order "
+                             f"{names}: DTensor shards a dim over several "
+                             "mesh dims in mesh order only")
+        for i in dims:
+            if out[i] != Replicate():
+                raise ValueError(f"mesh axis {names[i]!r} shards two dims "
+                                 f"of spec {spec}")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's layout: its `DeviceMesh` and its placements there (the
+    port's `NamedSharding`)."""
+
+    mesh: Any
+    placements: tuple
+
+
+def device_mesh(mesh):
+    """The `DeviceMesh` of `mesh`: a `launch/mesh.py::Mesh` laid over a
+    process group, or a `DeviceMesh` itself."""
+    dm = getattr(mesh, "device_mesh", mesh)
+    if dm is None:
+        raise ValueError(f"mesh {dict(mesh.shape)} is laid over no process "
+                         "group (launch/mesh.py::lay_over, described)")
+    return dm
+
+
+def to_shardings(specs: Pytree, mesh) -> Pytree:
+    """`Sharding(device mesh, to_placements(spec, mesh))` for every spec of
+    a tree (`is_spec` leaves), in the specs' structure: JAX's
+    `to_shardings`."""
+    dm = device_mesh(mesh)
+    return tree_map(lambda s: Sharding(dm, to_placements(s, dm)), specs,
+                    is_leaf=is_spec)
+
+
+def distribute(x, sharding: Sharding):
+    """A whole tensor, the same on every rank, as a DTensor laid out by
+    `sharding`: each rank keeps its own shard (`src_data_rank=None`: no
+    collective, every rank already holds the whole tensor)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x, sharding.mesh, list(sharding.placements),
+                             src_data_rank=None)
+
+
+def lay_out(tree: Pytree, mesh, device=None) -> Pytree:
+    """Every tensor leaf of `tree` as a DTensor on `mesh`, laid out by its
+    `param_specs` rule (by path and name, so Adam's mu and nu match their
+    params, anything unnamed replicates); other leaves as they are. A
+    plain leaf, the whole tensor on every rank, goes to `device` first and
+    each rank keeps its shard; a DTensor leaf is redistributed on its own
+    mesh."""
+    import torch
+
+    dm = device_mesh(mesh)
+
+    def place(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        spec = _spec_for(path, path.rsplit("/", 1)[-1], tuple(x.shape), dm)
+        if is_dtensor(x):
+            return placed(x, to_placements(spec, x.device_mesh))
+        return distribute(x if device is None else x.to(device),
+                          Sharding(dm, to_placements(spec, dm)))
+
+    return _map_with_path(place, tree)
+
+
+def placed(x, placements, mesh=None):
+    """`x` laid out by `placements`: a DTensor redistributed where its
+    placements differ; a plain tensor, whole on every rank, distributed on
+    `mesh`."""
+    if not is_dtensor(x):
+        return distribute(x, Sharding(mesh, tuple(placements)))
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, list(placements))
+
+
+def split_last(y, shape):
+    """`y` with its last dim reshaped to `shape` (its product). A DTensor
+    sharded on that dim over a mesh dim that `shape[0]` does not divide
+    (GQA's KV heads: Yi-6B's 4 over a "model" of 16; SwiGLU's fused
+    [gate | up] pair) is replicated there first: DTensor cannot cut the
+    leading split dim, and the JAX package's pins replicate it too."""
+    if is_dtensor(y):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh, last = y.device_mesh, Shard(y.ndim - 1)
+        y = placed(y, [Replicate() if p == last and shape[0] % mesh.size(i)
+                       else p for i, p in enumerate(y.placements)])
+    return y.reshape(tuple(y.shape[:-1]) + tuple(shape))
+
+
+def gathered(w):
+    """A weight for its use: a DTensor's shards over the data axes (its
+    FSDP axis) gathered, its "model" shards kept (ZeRO-3: the per-layer
+    all-gather XLA inserts). The redistribute's backward reduce-scatters
+    the weight's gradient back to its shards, and the gathered weight is
+    what the product's backward reads, so no activation moves for it. A
+    plain tensor is returned as it is."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = _names(w.device_mesh)
+    return placed(w, [Replicate() if names[i] in BATCH_AXES
+                      and isinstance(p, Shard) else p
+                      for i, p in enumerate(w.placements)])
+
+
+def matmul(x, w):
+    """`x @ w` for activations x (..., K) and a weight w (K, N); for
+    DTensors the product each rank takes of its shards, as GSPMD
+    partitions it under the rules (`local_map`, so that the backward is as
+    local as the forward; DTensor's per-op choice replicated the MLP's
+    hidden dim in the backward). Per mesh dim: rows of x over a data axis
+    with w whole (w's FSDP shards gathered: `gathered`) give rows of the
+    product; columns of w over "model" give its columns (column parallel);
+    x's and w's contraction dim over "model" gives a partial sum (row
+    parallel, reduced at the next pin); anything else is replicated. A
+    replicated operand's gradient is a partial sum where the other split
+    the work."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    w = gathered(w)
+    mesh = w.device_mesh
+    last = Shard(x.ndim - 1)
+    xp, wp, op, xg, wg = [], [], [], [], []
+    for i, (a, b) in enumerate(zip(x.placements, w.placements)):
+        if a == Shard(0) and b == Replicate():
+            xp.append(a), wp.append(b), op.append(Shard(0))
+            xg.append(a), wg.append(Partial())
+        elif a == last and b == Shard(0):
+            xp.append(a), wp.append(b), op.append(Partial())
+            xg.append(a), wg.append(b)
+        elif b == Shard(1):
+            xp.append(Replicate()), wp.append(b), op.append(Shard(x.ndim - 1))
+            xg.append(Partial()), wg.append(b)
+        else:
+            keep = a if a == Shard(0) else Replicate()
+            xp.append(keep), wp.append(Replicate())
+            op.append(keep)
+            xg.append(keep), wg.append(Partial() if keep != Replicate()
+                                       else Replicate())
+
+    return local_map(lambda a, b: a @ b, out_placements=op,
+                     in_placements=(xp, wp), in_grad_placements=(xg, wg),
+                     device_mesh=mesh)(placed(x, xp), placed(w, wp))
+
+
+def shard_hint(x, *axes):
+    """The JAX package's layout pin (`with_sharding_constraint`, a no-op
+    off-mesh). On a DTensor, `axes` (one entry a dim: None, an axis name or
+    a tuple of them) are cleaned against its mesh, dropping the axes it
+    lacks and those whose sizes do not divide the dim, and `x` is
+    redistributed to the result where its placements differ (a pending
+    partial sum is reduced there). A plain tensor is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    names, sizes = _names(mesh), _sizes(mesh)
+
+    def clean(dim, entry):
+        cand = tuple(a for a in _axes_of(entry) if a in names)
+        size = math.prod(sizes[a] for a in cand)
+        if not cand or dim % size:
+            return None
+        return cand if len(cand) > 1 else cand[0]
+
+    spec = tuple(clean(x.shape[i], axes[i]) if i < len(axes) else None
+                 for i in range(x.ndim))
+    return placed(x, to_placements(spec, mesh))
+
+
+__all__ = ["BATCH_AXES", "Sharding", "batch_specs", "cache_specs",
+           "data_axes", "device_mesh", "distribute", "fsdp_axis", "gathered",
+           "is_spec", "lay_out", "local_shape", "matmul", "opt_specs",
+           "param_specs", "placed", "set_moe_ep_only", "shard_hint",
+           "split_last", "to_placements", "to_shardings", "tp_axis"]

@@ -20,9 +20,21 @@ update into the params and optimizer state it was given (`Adam.update_`),
 as the JAX launcher donates them to its jitted step (`donate_argnums`): f32
 params, gradients and Adam's mu and nu are held once, 16 bytes a param. It
 runs under the profiler ranges `STAGES`.
+
+Sharded over a mesh: params (and Adam's mu and nu, laid out like them)
+that are DTensors (`runtime/elastic.py::reshard_state`) make the same step
+the JAX package's `jit(in_shardings=(params, opt, batch))`: the batch is
+laid out by `sharding.rules.batch_specs` on the params' mesh, the model's
+pins and `local_map`s lay out the work, every gradient is redistributed to
+its param's placements before the update (JAX's `out_shardings`: DTensor
+leaves a weight's gradient a partial sum), and the metrics come back
+whole, the same on every rank. The step runs under DTensor's
+`implicit_replication`: plain tensors made inside it (positions, masks,
+the step count) are replicated.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -31,7 +43,9 @@ import torch
 from torch.utils._pytree import tree_map
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import is_dtensor
 from repro_torch.models import lm
+from repro_torch.sharding import rules
 from repro_torch.train.compression import compress_decompress
 from repro_torch.train.optim import (Adam, AdamState, cosine_schedule,
                                      global_norm, value_and_grad)
@@ -59,24 +73,57 @@ def make_optimizer(tc: TrainConfig) -> Adam:
                 weight_decay=tc.weight_decay, clip_norm=tc.clip_norm)
 
 
-def loss_and_grads(cfg: ModelConfig, params, batch, remat: str = "none"):
-    """(loss, grads in params' tree) of `lm.loss_fn` on `batch`."""
-    return value_and_grad(lambda p: lm.loss_fn(cfg, p, batch, remat=remat),
-                          params)
+def loss_and_grads(cfg: ModelConfig, params, batch, remat: str = "none", *,
+                   ce_chunk: int = 512, q_chunk: int | None = None):
+    """(loss, grads in params' tree) of `lm.loss_fn` on `batch`; a DTensor
+    param's gradient laid out as the param."""
+    loss, grads = value_and_grad(
+        lambda p: lm.loss_fn(cfg, p, batch, remat=remat, ce_chunk=ce_chunk,
+                             q_chunk=q_chunk), params)
+    return loss, tree_map(lambda g, p: rules.placed(g, p.placements)
+                          if is_dtensor(p) else g, grads, params)
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
+def _whole(x):
+    """A DTensor metric as one plain tensor, the same on every rank."""
+    if not is_dtensor(x):
+        return x
+    return x.full_tensor()
+
+
+def place_batch(batch, params):
+    """`batch` on the params' device; on their mesh where they are DTensors,
+    laid out by `rules.batch_specs` (every rank holds the whole batch, as
+    every host does in the JAX launcher, and keeps its own rows; a value
+    that is a DTensor already is kept)."""
+    leaf = lm.tree_leaves(params)[0]
+    if not is_dtensor(leaf):
+        return {k: torch.as_tensor(v, device=leaf.device)
+                for k, v in batch.items()}
+    mesh = leaf.device_mesh
+    shardings = rules.to_shardings(rules.batch_specs(mesh, batch), mesh)
+    return {k: v if is_dtensor(v) else rules.distribute(
+                torch.as_tensor(v, device=leaf.device), shardings[k])
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, ce_chunk: int = 512,
+                    q_chunk: int | None = None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics {"loss", "grad_norm" (of the gradients the optimizer is given,
     before its clipping), "lr" (of this update)}), the update written into
     `params` and `opt_state`'s mu and nu, which it returns. `batch` holds
     tensors or arrays ("tokens", "labels", optionally "mask", and "frames"
-    for an encoder-decoder model) and goes to the params' device."""
+    for an encoder-decoder model) and goes to the params' device, or their
+    mesh (module docstring). `ce_chunk` is the loss's logits chunk and
+    `q_chunk` the attention backward's query chunk (None: `ops.Q_CHUNK`;
+    launch/perf.py's knobs)."""
     optimizer = make_optimizer(tc)
+    chunks = dict(ce_chunk=ce_chunk, q_chunk=q_chunk)
 
     def grads_of(params, batch):
         if tc.accum_steps <= 1:
-            return loss_and_grads(cfg, params, batch, tc.remat)
+            return loss_and_grads(cfg, params, batch, tc.remat, **chunks)
         a = tc.accum_steps
         rows, rest = divmod(next(iter(batch.values())).shape[0], a)
         if rest:
@@ -86,7 +133,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
         total = 0.0
         for i in range(a):
             micro = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
-            loss, grads = loss_and_grads(cfg, params, micro, tc.remat)
+            loss, grads = loss_and_grads(cfg, params, micro, tc.remat,
+                                         **chunks)
             tree_map(lambda x, g: x.add_(g), acc, grads)
             total = total + loss
             del grads
@@ -94,19 +142,31 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
         return total * inv, tree_map(lambda x: x * inv, acc)
 
     def train_step(params, opt_state: AdamState, batch):
-        device = lm.tree_leaves(params)[0].device
-        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        with torch.profiler.record_function(STAGES[0]):
-            loss, grads = grads_of(params, batch)
-            if tc.compress_pod_grads:
-                grads = compress_decompress(grads)
-        metrics = {"loss": loss, "grad_norm": global_norm(grads),
-                   "lr": optimizer._lr(opt_state.step + 1)}
-        with torch.profiler.record_function(STAGES[1]):
-            params, opt_state = optimizer.update_(grads, opt_state, params)
+        sharded = is_dtensor(lm.tree_leaves(params)[0])
+        with _replicating(sharded):
+            batch = place_batch(batch, params)
+            with torch.profiler.record_function(STAGES[0]):
+                loss, grads = grads_of(params, batch)
+                if tc.compress_pod_grads:
+                    grads = compress_decompress(grads)
+            metrics = {"loss": loss, "grad_norm": global_norm(grads),
+                       "lr": optimizer._lr(opt_state.step + 1)}
+            with torch.profiler.record_function(STAGES[1]):
+                params, opt_state = optimizer.update_(grads, opt_state, params)
+            if sharded:
+                metrics = {k: _whole(v) for k, v in metrics.items()}
         return params, opt_state, metrics
 
     return train_step
+
+
+def _replicating(sharded: bool):
+    """DTensor's `implicit_replication` for a sharded step, nothing else."""
+    if not sharded:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
 
 
 def init_train_state(cfg: ModelConfig, tc: TrainConfig, gen: torch.Generator,
@@ -128,4 +188,5 @@ def state_from_numpy(params_np, opt_np, device):
 
 
 __all__ = ["STAGES", "TrainConfig", "init_train_state", "loss_and_grads",
-           "make_optimizer", "make_train_step", "state_from_numpy"]
+           "make_optimizer", "make_train_step", "place_batch",
+           "state_from_numpy"]

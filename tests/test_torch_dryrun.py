@@ -90,3 +90,26 @@ def test_cells_report_bytes_fit_and_flops():
                              flops=False)
     assert set(decode["bytes_per_device"]) == {"params", "caches", "batch"}
     assert not decode["whole_fits_one_h100_80gb"] and decode["fits_h100_80gb"]
+
+
+def test_dense_train_cell_counts_its_collectives():
+    """The dry run's collective bytes of a dense train cell come from
+    launch/perf.py's sharded run (here the reduced yi-6b on a described
+    (2, 2) mesh): by kind, non-null; a cell that does not run sharded, or a
+    step not run, says why."""
+    from repro_torch.configs.base import shape_by_name
+    from repro_torch.launch.mesh import Mesh
+
+    train = shape_by_name("train_4k")
+    got = dryrun.collectives("yi-6b", train, False,
+                             mesh=Mesh({"data": 2, "model": 2}), reduced=True)
+    coll = got["collective_bytes_per_device"]
+    assert coll["total"] > 0 and coll["all-gather"] > 0
+    assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
+    skipped = dryrun.run_cell("h2o-danube-1.8b", "train_4k", multi_pod=False,
+                              flops=False)
+    assert skipped["collective_bytes_per_device"] is None
+    assert "not run" in skipped["collective_bytes_why"]
+    mla = dryrun.collectives("minicpm3-4b", train, False)
+    assert mla["collective_bytes_per_device"] is None
+    assert "ROADMAP A17" in mla["collective_bytes_why"]

@@ -139,6 +139,100 @@ def test_host_mesh_and_reshard_on_one_device():
     moved = reshard_state(state, mesh)
     assert torch.equal(moved["w"], state["w"]) and moved["opt"][1] == 5
     assert reshard_state(state, (torch.device("cpu"),))["w"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="2 devices"):
+    # several devices need a process group to lay DTensors over
+    with pytest.raises(ValueError, match="2 devices"):
         reshard_state(state, (torch.device("cpu"), torch.device("cpu")))
     assert jnp is not None
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "olmoe-1b-7b"])
+def test_reshard_over_a_described_mesh_places_every_leaf_by_its_spec(arch):
+    """Params and Adam state laid over a described (2, 2) mesh (the fake
+    group, fake tensors): every leaf a DTensor whose placements are its
+    spec's (`to_placements`) and whose local shape is `local_shape`."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.launch.mesh import Mesh, described
+
+    cfg = get_config(arch, reduced=True)
+    with described(Mesh({"data": 2, "model": 2})) as mesh, FakeTensorMode():
+        params = lm.init_params(cfg, torch.Generator(), "cpu")
+        opt = make_optimizer(TrainConfig()).init(params)
+        laid = reshard_state((params, opt), mesh)
+        specs = rules.param_specs(params, mesh)
+        spec_leaves = tree_leaves(specs, is_leaf=rules.is_spec)
+        for tree in (laid[0], laid[1].mu, laid[1].nu):
+            leaves = tree_leaves(tree)
+            assert len(leaves) == len(spec_leaves)
+            for x, spec in zip(leaves, spec_leaves):
+                want = [Replicate(), Replicate()]
+                for d, a in enumerate(spec):
+                    if a is not None:
+                        want[mesh.axis_names.index(a)] = Shard(d)
+                assert tuple(x.placements) == tuple(want), spec
+                assert tuple(x.to_local().shape) == rules.local_shape(
+                    x.shape, spec, mesh)
+        assert laid[1].step.placements == (Replicate(), Replicate())
+        assert sum(any(p != Replicate() for p in x.placements)
+                   for x in tree_leaves(laid[0])) > 4
+    assert not torch.distributed.is_initialized()
+
+
+def test_shard_hint_and_placements():
+    """`to_placements` of the rules' spec forms, and `shard_hint`: a no-op
+    on a plain tensor, a redistribute of a DTensor to the cleaned spec
+    (axes the mesh lacks, or that do not divide the dim, dropped)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import Mesh, described
+
+    x = torch.ones(3, 4)
+    assert rules.shard_hint(x, rules.BATCH_AXES, "model") is x
+    with described(Mesh({"pod": 2, "data": 2, "model": 2})) as mesh:
+        dm = mesh.device_mesh
+        assert rules.to_placements((("pod", "data"), None, "model"), dm) == (
+            Shard(0), Shard(0), Shard(2))
+        assert rules.to_placements((), dm) == (Replicate(),) * 3
+        with pytest.raises(ValueError, match="mesh order"):
+            rules.to_placements((("data", "pod"),), dm)
+        with FakeTensorMode():
+            t = rules.distribute(torch.zeros(8, 6, 4),
+                                 rules.Sharding(dm, (Replicate(),) * 3))
+            hinted = rules.shard_hint(t, rules.BATCH_AXES, "model", None)
+            assert hinted.placements == (Shard(0), Shard(0), Shard(1))
+            assert tuple(hinted.to_local().shape) == (2, 3, 4)
+            # an axis the mesh lacks is dropped; 6 rows over 2 x 2 do not
+            # divide, so that pin is dropped whole
+            odd = rules.shard_hint(t, None, ("pod", "data"), ("model", "gone"))
+            assert odd.placements == (Replicate(), Replicate(), Shard(2))
+
+
+def test_checkpoint_restore_with_shardings_on_one_cpu_device(tmp_path):
+    """`CheckpointManager.restore(shardings=)` on a (1, 1) mesh over one
+    gloo rank: a sharded save restores bit for bit, as DTensors placed as
+    asked, and into a plain template without shardings."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import Mesh, lay_over, process_group
+
+    cfg = get_config("yi-6b", reduced=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    with process_group("gloo", 1, 0, f"file://{tmp_path / 'store'}"):
+        mesh = lay_over(Mesh({"data": 1, "model": 1}), "cpu")
+        laid = reshard_state(params, mesh)
+        mgr = CheckpointManager(str(tmp_path / "ckpt"))
+        mgr.save(4, laid)
+        sh = rules.to_shardings(rules.param_specs(params, mesh), mesh)
+        back = mgr.restore(params, step=4, shardings=sh)
+        for x, y, s in zip(tree_leaves(back), tree_leaves(params),
+                           tree_leaves(sh)):
+            assert tuple(x.placements) == s.placements
+            assert torch.equal(x.full_tensor(), y)
+        plain = mgr.restore(params)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(plain),
+                                                     tree_leaves(params)))
+    assert not torch.distributed.is_initialized()
