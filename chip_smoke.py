@@ -3072,6 +3072,21 @@ def attention_inputs(torch, heads, b, lq, lk, dtype, seed, device):
     return mk(hq, lq, d), mk(hkv, lk, d), mk(hkv, lk, dv)
 
 
+def over_ulp_limit(torch, got, want, ulps, parts=()):
+    """The worst of bf16 `got`'s errors against `want` over its limit:
+    `ulps` ulps of max(|got|, |want|, and |each of `parts`|, the outputs
+    `got` was made of) plus BF16_FLOOR of the largest |want| (more than 1:
+    past the limit)."""
+    g, w = got.float(), want.float()
+    # a bf16 value in [2^(e-1), 2^e) has an ulp of 2^(e-8)
+    mag = torch.maximum(g.abs(), w.abs())
+    for part in parts:
+        mag = torch.maximum(mag, part.float().abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    limit = ulps * ulp + BF16_FLOOR * float(w.abs().max())
+    return float(((g - w).abs() / limit).max())
+
+
 def attention_check(torch, q, k, v, what, **kw):
     """The kernel against the plain version on one input: max abs error,
     the share of outputs whose bits differ and, in bf16, the worst error
@@ -3093,12 +3108,7 @@ def attention_check(torch, q, k, v, what, **kw):
     out = {"max_abs_err": float((got.float() - want.float()).abs().max()),
            "bits_differ": float((got.view(bits) != want.view(bits)).float().mean())}
     if q.dtype == torch.bfloat16:
-        g, w = got.float(), want.float()
-        # a bf16 value in [2^(e-1), 2^e) has an ulp of 2^(e-8)
-        mag = torch.maximum(g.abs(), w.abs())
-        ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
-        limit = BF16_ULPS * ulp + BF16_FLOOR * float(w.abs().max())
-        out["err_over_ulp_limit"] = float(((g - w).abs() / limit).max())
+        out["err_over_ulp_limit"] = over_ulp_limit(torch, got, want, BF16_ULPS)
         if out["bits_differ"] > BF16_BITS_SHARE or out["err_over_ulp_limit"] > 1:
             raise AssertionError(
                 f"flash {what}: {out}; bf16 limits: bits differ in at most "
@@ -3177,20 +3187,118 @@ def attention_cases(torch, device, table, bw, fp32_flops, bf16_flops,
     return cases, worst, timed_bf16
 
 
+#: the kernel's log-sum-exp output (for a split over the keys): Yi's
+#: prefill case and a decode row over 3,000 keys; the split cuts the keys
+#: in two at half of those the last row sees
+LSE_CASES = (("causal over a full cache", YI_HEADS, 1, 2048, 4096, True, 0, 0),
+             ("decode", YI_HEADS, 1, 1, 4096, True, 0, 3000))
+#: the lse against attention_ref's: both compute the scores in f32 (the
+#: bf16 kernel's products of bf16 values are exact, summed in f32)
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+#: the bf16 key split against the one launch, inside ATTN_TOL: each range's
+#: output is rounded to bf16 before the merge, which rounds once more, so
+#: the error is counted in ulps of the largest of the merged output, the
+#: one launch's and the ranges' (an output near 0 can be the sum of two
+#: larger ones). With attention_ref in the kernel's place, on the CPU (the
+#: decode case and the prefill's last 256 rows, 3 seeds each), the sound
+#: merge comes to 0.49 of this limit; ranges weighted equally go 4.9 to 27
+#: times past it, swapped lse 9.9 to 55 times, zeros ~120 times
+SPLIT_ULPS = 2
+
+
+def lse_cases(torch, device, seed0=100):
+    """Per LSE_CASES case and dtype: the kernel's output with its lse asked
+    for against the output without, bit for bit; its lse against
+    attention_ref's (LSE_TOL); the kernel over two ranges of the keys (cut
+    at half of those the last row sees; each launch's q_offset shifted by
+    its first key), merged by `ops.merge`, against the one launch over all
+    of them (ATTN_TOL; in bf16 also SPLIT_ULPS); and at Yi's prefill the launch's ms with and
+    without the lse (CUDA events).
+    Raises on a difference past its tolerance. Returns (cases, worst
+    error)."""
+    from repro_torch.kernels.attention import attention_ref, flash_attention_cuda
+    from repro_torch.kernels.attention.ops import merge
+
+    cases, worst = [], 0.0
+    with uncounted():
+        for i, (what, heads, b, lq, lk, causal, window, q_offset) in \
+                enumerate(LSE_CASES):
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).split(".")[-1]
+                q, k, v = attention_inputs(torch, heads, b, lq, lk, dtype,
+                                           seed0 + i, device)
+                kw = dict(causal=causal, window=window, q_offset=q_offset)
+                plain_o = flash_attention_cuda(q, k, v, **kw)
+                o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+                _, want_lse = attention_ref(q, k, v, return_lse=True, **kw)
+                # the cut halves the keys the last row sees, so that rows
+                # see keys on both sides of it
+                cut = min(lk, q_offset + lq) // 2
+                parts = [flash_attention_cuda(
+                    q, k[:, :, a:b].contiguous(), v[:, :, a:b].contiguous(),
+                    return_lse=True, **dict(kw, q_offset=q_offset - a))
+                    for a, b in ((0, cut), (cut, lk))]
+                merged = merge(torch.stack([x for x, _ in parts]),
+                               torch.stack([x for _, x in parts]))
+                torch.cuda.synchronize()
+                same = bool(torch.equal(o, plain_o))
+                finite = torch.isfinite(want_lse)
+                lse_err = float((lse - want_lse)[finite].abs().max())
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                case = {"case": what, "dtype": name, "heads": heads, "B": b,
+                        "Lq": lq, "Lk": lk, "q_offset": q_offset,
+                        "o_with_lse_bit_for_bit": same,
+                        "lse_max_abs_err": lse_err,
+                        "lse_inf_rows_agree": bool(torch.equal(
+                            torch.isinf(lse), torch.isinf(want_lse))),
+                        "split_max_abs_err": float(
+                            (merged.float() - o.float()).abs().max()),
+                        "split_bits_differ": float(
+                            (merged.view(bits) != o.view(bits)).float().mean()),
+                        "lse_tol": LSE_TOL, "split_tol": ATTN_TOL[name]}
+                if dtype == torch.bfloat16:
+                    case["split_ulps"] = SPLIT_ULPS
+                    case["split_err_over_ulp_limit"] = over_ulp_limit(
+                        torch, merged, o, SPLIT_ULPS, [x for x, _ in parts])
+                if not same or not case["lse_inf_rows_agree"] or case.get(
+                        "split_err_over_ulp_limit", 0.0) > 1:
+                    raise AssertionError(f"flash lse {what} {name}: {case}")
+                torch.testing.assert_close(
+                    lse, want_lse, **LSE_TOL,
+                    msg=lambda m: f"flash lse {what} {name}: {m}")
+                torch.testing.assert_close(
+                    merged.float(), o.float(), rtol=ATTN_TOL[name],
+                    atol=ATTN_TOL[name],
+                    msg=lambda m: f"flash key split {what} {name}: {m}")
+                if lq > 1:
+                    case["ms"] = event_ms(torch, lambda: flash_attention_cuda(
+                        q, k, v, **kw), 20)
+                    case["ms_with_lse"] = event_ms(
+                        torch, lambda: flash_attention_cuda(
+                            q, k, v, return_lse=True, **kw), 20)
+                worst = max(worst, case["split_max_abs_err"])
+                cases.append(case)
+                del q, k, v, parts, merged
+    torch.cuda.empty_cache()
+    return cases, worst
+
+
 def phase_attention(torch, device, bw, fp32_flops, bf16_flops):
     """The CUDA flash attention against attention_ref at the LM paths'
     shapes; kernel, plain and SDPA times and the bound at the timed cases
-    (the window's in bf16 only). Returns (worst error, {timed name: its
-    bf16 case})."""
+    (the window's in bf16 only); then its log-sum-exp output and the key
+    split (lse_cases). Returns (worst error, {timed name: its bf16
+    case})."""
     t0 = time.perf_counter()
     cases, worst, timed_bf16 = attention_cases(torch, device, ATTN_CASES, bw,
                                                fp32_flops, bf16_flops)
+    lse, lse_worst = lse_cases(torch, device)
     emit({"phase": "attention", "seconds": time.perf_counter() - t0,
-          "cases": cases, "clock": "CUDA events: kernel and SDPA over 20 "
-          "launches, plain over 3", "rates": {"bytes_per_s": bw,
-                                              "bf16_flops": bf16_flops,
-                                              "fp32_flops": fp32_flops}})
-    return worst, timed_bf16
+          "cases": cases, "lse_cases": lse, "clock": "CUDA events: kernel "
+          "and SDPA over 20 launches, plain over 3", "rates": {
+              "bytes_per_s": bw, "bf16_flops": bf16_flops,
+              "fp32_flops": fp32_flops}})
+    return max(worst, lse_worst), timed_bf16
 
 
 @contextlib.contextmanager
@@ -4523,16 +4631,45 @@ SHARDED_TOL = 1e-6
 #: launch/perf.py's cells, each `python -m repro_torch.launch.perf` in a
 #: subprocess of its own (all three at once: each is one CPU process on
 #: the production mesh as a described mesh, fake tensors)
-SHARDED_PERF = (("yi-6b", ""), ("yi-6b", "remat=dots"),
-                ("olmoe-1b-7b", "moe_ep_only=1"))
+SHARDED_PERF = (("yi-6b", "", "train_4k"), ("yi-6b", "remat=dots", "train_4k"),
+                ("olmoe-1b-7b", "moe_ep_only=1", "train_4k"),
+                ("zamba2-2.7b", "", "long_500k"),
+                ("minicpm3-4b", "", "decode_32k"))
+#: the other families' train steps on the (1, 1) mesh, plain against
+#: DTensor bit for bit: (name, arch, segments cut to, steps, sequence
+#: length); segments None keeps the config's (whisper-base: 6 encoder and 6
+#: decoder layers). xLSTM takes 512 tokens a row: its sLSTM is a Python
+#: loop over time steps, forward and backward, ~27 s a step at 2,048
+SHARDED_TRAIN = (("mla", "minicpm3-4b", ((("mla",), 2),), 2, TRAIN_SEQ),
+                 ("xlstm", "xlstm-350m", ((("mlstm", "mlstm", "slstm"), 1),),
+                  2, 512),
+                 ("zamba2", "zamba2-2.7b",
+                  ((("mamba2", "mamba2", "attn_shared"), 1),), 2, TRAIN_SEQ),
+                 ("whisper", "whisper-base", None, 2, TRAIN_SEQ))
+#: prefill of SERVE_SHARDED_PROMPT tokens, then SERVE_SHARDED_DECODES
+#: scalar-position decode steps, plain against DTensor on the (1, 1) mesh,
+#: bit for bit (logits and every cache leaf): (name, arch, mla_absorb,
+#: segments cut to or None); batch SERVE_SHARDED_BATCH, Whisper with its
+#: 1,500 frames
+SHARDED_SERVE = (("yi", "yi-6b", False, ((("full",), 2),)),
+                 ("danube_ring", "h2o-danube-1.8b", False, ((("swa",), 2),)),
+                 ("olmoe", "olmoe-1b-7b", False, ((("full_moe",), 2),)),
+                 ("mla", "minicpm3-4b", False, ((("mla",), 2),)),
+                 ("mla_absorbed", "minicpm3-4b", True, ((("mla",), 2),)),
+                 ("xlstm", "xlstm-350m", False,
+                  ((("mlstm", "mlstm", "slstm"), 1),)),
+                 ("zamba2", "zamba2-2.7b", False,
+                  ((("mamba2", "mamba2", "attn_shared"), 1),)),
+                 ("whisper", "whisper-base", False, None))
+SERVE_SHARDED_BATCH, SERVE_SHARDED_PROMPT, SERVE_SHARDED_DECODES = 2, 2048, 8
 
 
 def _sharded_pair(torch, device, cfg, tc, steps, mesh, dc):
     """`steps` train steps of `cfg` from LM_SEED twice, plain and laid out
     by reshard_state on `mesh`: per run the metrics, the ms a step (host
-    clock, each step ended by reading its loss), the flash launches of the
-    sharded run (counts set to 0 just before it, read just after), and the
-    largest difference of losses, grad norms and params."""
+    clock, each step ended by reading its loss), the flash launches of each
+    run (counts set to 0 just before it, read just after), and the largest
+    difference of losses, grad norms and params."""
     import gc
 
     from repro_torch.launch import train as launch_train
@@ -4552,14 +4689,13 @@ def _sharded_pair(torch, device, cfg, tc, steps, mesh, dc):
                    for s in range(steps)]
         metrics, secs = [], []
         torch.cuda.synchronize()
-        if sharded:
-            reset_counts()
+        reset_counts()
         for batch in batches:
             t = time.perf_counter()
             params, opt, m = step(params, opt, batch)
             metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
             secs.append(time.perf_counter() - t)
-        launches = read_counts() if sharded else None
+        launches = read_counts()
         leaves = [x.full_tensor() if sharded else x
                   for x in lm.tree_leaves(params)]
         runs[sharded] = {"metrics": metrics, "ms": [1e3 * x for x in secs],
@@ -4575,16 +4711,89 @@ def _sharded_pair(torch, device, cfg, tc, steps, mesh, dc):
                          for a, b in zip(plain["metrics"], dt["metrics"])),
         "params": max(float((a.float() - b.float()).abs().max())
                       for a, b in zip(plain["leaves"], dt["leaves"]))}
-    out = {"layers": SHARDED_LAYERS, "steps": steps,
-           "tokens_per_step": dc.global_batch * dc.seq_len,
+    out = {"layers": sum(rep * len(blocks) for blocks, rep in cfg.segments),
+           "steps": steps, "tokens_per_step": dc.global_batch * dc.seq_len,
            "metrics_plain": plain["metrics"], "metrics_dtensor": dt["metrics"],
            "ms_plain": plain["ms"], "ms_dtensor": dt["ms"],
-           "launches": dt["launches"], "max_abs_diff": diff,
-           "tol": SHARDED_TOL}
+           "launches": dt["launches"], "launches_plain": plain["launches"],
+           "max_abs_diff": diff, "tol": SHARDED_TOL}
     # the first step builds DTensor's sharding strategies: the overhead is
     # read from the last step
     out["dtensor_overhead_ms"] = dt["ms"][-1] - plain["ms"][-1]
     return out, dt["state"]
+
+
+def _sharded_serve_pair(torch, device, cfg, mesh):
+    """`lm.prefill` of SERVE_SHARDED_PROMPT tokens and SERVE_SHARDED_DECODES
+    scalar-position decode steps of `cfg` from LM_SEED twice, plain and
+    from params laid out by reshard_state on `mesh` (its caches laid out by
+    the rules on the mesh): per run the ms of the prefill and of each step
+    (host clock, each ended by a sync), the flash launches (counts set to 0
+    just before it, read just after), and whether every logit and every
+    cache leaf are equal bit for bit."""
+    import gc
+
+    from repro_torch.models import lm
+    from repro_torch.runtime.elastic import reshard_state
+
+    b, l = SERVE_SHARDED_BATCH, SERVE_SHARDED_PROMPT
+    g = torch.Generator(device=device).manual_seed(LM_SEED + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, l), generator=g,
+                                     device=device)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((b, cfg.encoder_len, cfg.d_model),
+                                      generator=g, device=device)
+    steps = torch.randint(0, cfg.vocab_size, (SERVE_SHARDED_DECODES, b, 1),
+                          generator=g, device=device)
+    max_seq = l + SERVE_SHARDED_DECODES if cfg.window == 0 else SERVE_MAX_SEQ
+    runs = {}
+    for sharded in (False, True):
+        gen = torch.Generator(device=device).manual_seed(LM_SEED)
+        params = lm.init_params(cfg, gen, device)
+        if sharded:
+            params = reshard_state(params, mesh)
+        torch.cuda.synchronize()
+        reset_counts()
+        with torch.no_grad():
+            t = time.perf_counter()
+            logits, caches = lm.prefill(cfg, params, batch, max_seq)
+            torch.cuda.synchronize()
+            secs = [time.perf_counter() - t]
+            outs = [logits]
+            for i in range(SERVE_SHARDED_DECODES):
+                t = time.perf_counter()
+                logits, caches = lm.decode_step(cfg, params, caches, steps[i],
+                                                l + i)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                outs.append(logits)
+        launches = read_counts()
+        whole = lambda x: x.full_tensor() if sharded else x
+        runs[sharded] = {"ms": [1e3 * x for x in secs], "launches": launches,
+                         "outs": [whole(x) for x in outs],
+                         "caches": [whole(x) for x in lm.tree_leaves(caches)],
+                         "placements": sorted({str(x.placements) for x in
+                                               lm.tree_leaves(caches)})
+                         if sharded else None}
+        del params, caches, outs
+        gc.collect()
+    plain, dt = runs[False], runs[True]
+    ok = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    logits_equal, caches_equal = (ok(plain["outs"], dt["outs"]),
+                                  ok(plain["caches"], dt["caches"]))
+    finite = all(bool(torch.isfinite(x).all()) for x in dt["outs"])
+    return {"batch": b, "prompt": l, "decodes": SERVE_SHARDED_DECODES,
+            "max_seq": max_seq,
+            "layers": sum(rep * len(blocks) for blocks, rep in cfg.segments),
+            "prefill_ms_plain": plain["ms"][0], "prefill_ms_dtensor": dt["ms"][0],
+            "step_ms_plain": plain["ms"][1:], "step_ms_dtensor": dt["ms"][1:],
+            "launches_plain": plain["launches"], "launches": dt["launches"],
+            "logits_bit_for_bit": logits_equal,
+            "caches_bit_for_bit": caches_equal, "finite": finite,
+            "cache_placements": dt["placements"],
+            "max_abs_diff": max(float((x.float() - y.float()).abs().max())
+                                for x, y in zip(plain["outs"] + plain["caches"],
+                                                dt["outs"] + dt["caches"]))}
 
 
 def start_perf():
@@ -4598,12 +4807,12 @@ def start_perf():
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     started = []
-    for arch, variant in SHARDED_PERF:
+    for arch, variant, shape in SHARDED_PERF:
         out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
         started.append((arch, variant, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.perf", "--arch", arch,
-             "--shape", "train_4k"] + (["--variant", variant] if variant
-                                       else []),
+             "--shape", shape] + (["--variant", variant] if variant
+                                  else []),
             stdout=out, stderr=err, env=env, cwd=str(ROOT)), out, err))
     return started
 
@@ -4614,13 +4823,15 @@ def _read_all(f) -> str:
 
 
 def phase_sharded(torch, device, perf=None):
-    """The sharded LM step on the card (module constants SHARDED_*): one
+    """The sharded LM paths on the card (module constants SHARDED_*): one
     nccl rank and a (1, 1) DeviceMesh; danube's dense step and OLMoE's MoE
     step, plain against DTensor; a checkpoint round trip of the sharded
-    state, restored with shardings= onto the mesh, bit for bit; then
-    launch/perf.py's cells (`perf`, from `start_perf`, started here where
-    not given), their collective bytes printed. Returns the flash launches
-    of the DTensor runs."""
+    state, restored with shardings= onto the mesh, bit for bit; the MLA,
+    recurrent and Whisper train steps (SHARDED_TRAIN) and every family's
+    prefill and decode steps (SHARDED_SERVE), plain against DTensor bit
+    for bit, flash launches equal; then launch/perf.py's cells (`perf`,
+    from `start_perf`, started here where not given), their collective
+    bytes printed. Returns the flash launches of the DTensor runs."""
     import dataclasses
     import gc
     import shutil
@@ -4694,6 +4905,47 @@ def phase_sharded(torch, device, perf=None):
                 torch.cuda.empty_cache()
                 out[name] = got
                 emit({"phase": f"sharded_{name}", **got})
+            for name, arch, segments, steps, seq in SHARDED_TRAIN:
+                cfg = get_config(arch)
+                if segments is not None:
+                    cfg = dataclasses.replace(cfg, segments=segments)
+                got, state = _sharded_pair(
+                    torch, device, cfg, tc, steps, mesh,
+                    dataclasses.replace(dc, vocab_size=cfg.vocab_size,
+                                        seq_len=seq))
+                del state
+                got["arch"] = arch
+                if (got["launches"] != got["launches_plain"]
+                        or max(got["max_abs_diff"].values()) != 0):
+                    raise AssertionError(f"sharded train {name}: {got}")
+                launches[f"train_{name}"] = got["launches"]["flash"]
+                gc.collect()
+                torch.cuda.empty_cache()
+                out[f"train_{name}"] = got
+                emit({"phase": f"sharded_train_{name}", **got})
+            for name, arch, absorb, segments in SHARDED_SERVE:
+                cfg = dataclasses.replace(get_config(arch), mla_absorb=absorb)
+                if segments is not None:
+                    cfg = dataclasses.replace(cfg, segments=segments)
+                torch.use_deterministic_algorithms(arch == "olmoe-1b-7b",
+                                                   warn_only=True)
+                try:
+                    got = _sharded_serve_pair(torch, device, cfg, mesh)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                got["arch"], got["mla_absorb"] = arch, absorb
+                if (got["launches"] != got["launches_plain"]
+                        or not got["logits_bit_for_bit"]
+                        or not got["caches_bit_for_bit"] or not got["finite"]):
+                    raise AssertionError(f"sharded serve {name}: {got}")
+                launches[f"serve_{name}"] = got["launches"]["flash"]
+                gc.collect()
+                torch.cuda.empty_cache()
+                out[f"serve_{name}"] = got
+                emit({"phase": f"sharded_serve_{name}", **got})
+            if not any(launches[f"serve_{n}"] for n, *_ in SHARDED_SERVE):
+                raise AssertionError(f"sharded serve: no flash launch "
+                                     f"{launches}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cells = []
@@ -4704,7 +4956,8 @@ def phase_sharded(torch, device, perf=None):
             raise AssertionError(f"perf {arch} {variant!r}: rc "
                                  f"{proc.returncode}\n{stderr[-2000:]}")
         res = json.loads(stdout)
-        if not res["sharded"] or not res["collective_bytes_per_device"]:
+        if not res["sharded"] or not res["collective_bytes_per_device"] \
+                or not res["collective_bytes_per_device"]["total"]:
             raise AssertionError(f"perf {arch} {variant!r}: {res}")
         cells.append({k: res[k] for k in (
             "arch", "shape", "variant", "compile_s", "flops_per_device",

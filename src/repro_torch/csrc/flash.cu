@@ -18,6 +18,11 @@
 //     Lq = 1 at q_offset = pos). Key j is visible where j < Lk, j <= qpos
 //     (causal) and j > qpos - window (window > 0). Any Lq and Lk: the
 //     ragged last tiles are masked here, with no padding.
+//   - Optionally (a non-null `lse`, float32 (B, Hq, Lq)) each row's
+//     log-sum-exp of its visible scaled scores, m + log(l) in natural-log
+//     units, -inf for a row that sees no key: what a caller that split the
+//     keys over launches (or ranks) merges their outputs by. It is written
+//     after the output and changes none of its arithmetic.
 //   - As the TPU kernel: masked scores are -1e30, K tiles that no row of
 //     the query tile can see are skipped (on the same absolute positions),
 //     the running max m, sum l and accumulator acc are float32, and the
@@ -146,7 +151,8 @@ constexpr size_t smem_bytes() {
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv,
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int Hq, int Hkv,
              int Lq, int Lk, int causal, int window, int q_offset, float scale,
              int G) {
   static_assert(D % 16 == 0 && DV % 16 == 0,
@@ -286,6 +292,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = o + (row0 + grouped_row(r, G, Lq)) * DV;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) orow[tx + 16 * j] = acc[i][j] / denom;
+    // m is in natural-log units here: log(0) makes an unseeing row -inf
+    if (lse != nullptr && tx == 0)
+      lse[row0 + grouped_row(r, G, Lq)] = m[i] + logf(l[i]);
   }
 }
 
@@ -403,7 +412,8 @@ __global__ void __launch_bounds__(kTcThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Lq,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int Hq, int Hkv, int Lq,
                   int Lk, int causal, int window, int q_offset, float scale,
                   int G) {
   static_assert(D % 16 == 0 && DV % 16 == 0,
@@ -584,13 +594,19 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
       out[j * 4] = pack_bf16(acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
+    // m_run is in base-2 units (scores times log2 e): times ln 2 it is the
+    // natural-log max; log(0) makes an unseeing row -inf
+    if (lse != nullptr && t4 == 0)
+      lse[row0 + grouped_row(row, G, Lq)] =
+          m_run[r] * 0.6931471805599453f + logf(l);
   }
 }
 
 template <int D, int DV>
 int launch_f32(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
                int q_offset, float scale, const void* q, const void* k,
-               const void* v, void* o, cudaStream_t stream, int G) {
+               const void* v, void* o, float* lse, cudaStream_t stream,
+               int G) {
   constexpr size_t smem = smem_bytes<D, DV>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -602,7 +618,7 @@ int launch_f32(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
                   (unsigned)B);
   flash_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Lq, Lk,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv, Lq, Lk,
       causal, window, q_offset, scale, G);
   return (int)cudaGetLastError();
 }
@@ -610,7 +626,8 @@ int launch_f32(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
 template <int D, int DV>
 int launch_bf16(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
                 int q_offset, float scale, const void* q, const void* k,
-                const void* v, void* o, cudaStream_t stream, int G) {
+                const void* v, void* o, float* lse, cudaStream_t stream,
+                int G) {
   constexpr size_t smem = bf16_smem<D, DV>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -623,8 +640,8 @@ int launch_bf16(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
   const dim3 grid((unsigned)(Hq / G), (unsigned)nq, (unsigned)B);
   flash_bf16_kernel<D, DV><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Hq,
-      Hkv, Lq, Lk, causal, window, q_offset, scale, G);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      Hq, Hkv, Lq, Lk, causal, window, q_offset, scale, G);
   return (int)cudaGetLastError();
 }
 
@@ -632,18 +649,20 @@ int launch_bf16(int B, int Hq, int Hkv, int Lq, int Lk, int causal, int window,
 
 // Attention of q (head dim D) over k (D) and v (Dv) on `stream`; dtype 0 is
 // float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core kernel; q, k,
-// v and o 16-byte aligned). Returns the launch's cudaError_t
+// v and o 16-byte aligned). `lse`, float32 (B, Hq, Lq) or null, takes each
+// row's log-sum-exp of its visible scaled scores. Returns the launch's cudaError_t
 // (cudaErrorInvalidValue for a pair of head dims, dtype or shape the
 // kernels are not built for).
 extern "C" int flash_attention(int dtype, int B, int Hq, int Hkv, int Lq,
                                int Lk, int D, int Dv, int causal, int window,
                                int q_offset, float scale, const void* q,
                                const void* k, const void* v, void* o,
-                               void* stream) {
+                               void* lse, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Lq < 1 || Lk < 1 ||
       B > 65535 || Hq > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* const row_lse = static_cast<float*>(lse);
   // the (D, Dv) pairs built: D = Dv for the GQA models (Yi 128, Danube 80,
   // the tests'), (96, 64) for MLA's naive form and (288, 256) for its
   // absorbed form (MiniCPM3-4B). The absorbed form has one KV head for all
@@ -655,9 +674,10 @@ extern "C" int flash_attention(int dtype, int B, int Hq, int Hkv, int Lq,
     if ((long long)G * Lq >= (1LL << 31)) return (int)cudaErrorInvalidValue;    \
     return dtype == 0                                                           \
                ? launch_f32<d, dv>(B, Hq, Hkv, Lq, Lk, causal, window,          \
-                                   q_offset, scale, q, k, v, o, s, G)           \
+                                   q_offset, scale, q, k, v, o, row_lse, s, G)  \
                : launch_bf16<d, dv>(B, Hq, Hkv, Lq, Lk, causal, window,         \
-                                    q_offset, scale, q, k, v, o, s, G);         \
+                                    q_offset, scale, q, k, v, o, row_lse, s,    \
+                                    G);                                         \
   }
   FLASH_CASE(16, 16, 1)
   FLASH_CASE(32, 32, 1)

@@ -7,7 +7,8 @@ contract of `ref.attention_ref` (a `q_offset`, any Lq and Lk), which is what
 are hand-written CUDA C++ for sm_90a in `csrc/flash.cu` (design and bound in
 its header): bfloat16 runs on the tensor cores, float32 on the CUDA cores.
 This module is their one wrapper: it checks the operands, allocates the
-output, launches on PyTorch's current stream and counts the launches.
+output (and, asked for, each row's log-sum-exp), launches on PyTorch's
+current stream and counts the launches.
 It takes only CUDA tensors and raises on anything else; the plain version
 for the CPU is `ref.attention_ref`, chosen by `ops.attention`.
 """
@@ -33,7 +34,7 @@ def _bind(lib: ctypes.CDLL):
     fn = lib.flash_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 11 + [ctypes.c_float]
-                       + [ctypes.c_void_p] * 5)
+                       + [ctypes.c_void_p] * 6)
         fn.restype = ctypes.c_int
     return fn
 
@@ -47,15 +48,20 @@ def _library():
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
                          q_offset: int = 0,
-                         scale: float | None = None) -> torch.Tensor:
+                         scale: float | None = None,
+                         return_lse: bool = False):
     """q (B, Hq, Lq, D), k (B, Hkv, Lk, D) and v (B, Hkv, Lk, Dv),
     contiguous float32 or bfloat16 on one CUDA device, 16-byte aligned, Hq a
     multiple of Hkv -> (B, Hq, Lq, Dv) in q's dtype, as one CUDA launch.
     Query row i sits at absolute position q_offset + i; key j is visible
     where j <= q_offset + i (causal) and j > q_offset + i - window (window
-    > 0). `scale` defaults to D ** -0.5. A (D, Dv) pair the kernels are not
-    built for (`HEAD_DIMS`) raises NotImplementedError: nothing runs the
-    plain version in its place."""
+    > 0; q_offset may be negative: a launch over a later range of keys).
+    `scale` defaults to D ** -0.5. With `return_lse`, (out, lse): lse is
+    float32 (B, Hq, Lq), each row's log-sum-exp of its visible scaled
+    scores (-inf where it sees none; its output row is then 0), written by
+    the same launch, which computes the same output either way. A (D, Dv)
+    pair the kernels are not built for (`HEAD_DIMS`) raises
+    NotImplementedError: nothing runs the plain version in its place."""
     from repro_torch.kernels import is_dtensor
 
     for x in (q, k, v):
@@ -101,6 +107,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{b}, {hq}, {lq}, {lk}, {q_offset}, {window}")
     scale = (d ** -0.5) if scale is None else scale
     out = q.new_empty((b, hq, lq, dv))
+    lse = (torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     for what, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention_cuda takes 16-byte aligned "
@@ -108,12 +116,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     rc = _library()(DTYPES[q.dtype], b, hq, hkv, lq, lk, d, dv, int(bool(causal)),
                     int(window), int(q_offset), float(scale), ptr(q),
-                    ptr(k), ptr(v), ptr(out), ctypes.c_void_p(
+                    ptr(k), ptr(v), ptr(out),
+                    None if lse is None else ptr(lse), ctypes.c_void_p(
                         torch.cuda.current_stream(q.device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {rc}")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: kernel launches since the count was last set to 0 (chip_smoke.py reads it)

@@ -18,8 +18,11 @@ mode is on and an input requires grad; otherwise a call launches exactly
 what it launched before.
 
 DTensors (a step sharded over a `DeviceMesh`) run the same dispatch on
-each rank's local shard, through `local_map` (`_sharded`): batch over the
-data axes, heads over "model". The kernel on the card, or the plain
+each rank's local shard, through `local_map` (`sharded_call`): batch over
+the data axes, heads over "model", and keys where a cache is laid out
+over its sequence: there each rank attends over its own keys, the kernel
+gives each row's log-sum-exp beside its output, and `merge` combines the
+ranks' outputs with two all-reduces. The kernel on the card, or the plain
 version on the CPU, sees plain local tensors; the cost it logs is the
 shard's, one device's work. A DTensor is never gathered into a full
 tensor here, and the kernel's wrapper refuses one.
@@ -56,20 +59,26 @@ def padded_pair(d: int, dv: int):
     return min(fits, key=sum) if fits else None
 
 
-def padded(fn, q, k, v, pair, *, scale=None, **kw) -> torch.Tensor:
+def padded(fn, q, k, v, pair, *, scale=None, return_lse=False, **kw):
     """`fn(q, k, v, scale=..., **kw)` with q and k zero-padded to pair[0]
-    and v to pair[1] in the head dim, the output sliced back to v's width.
-    Zero columns add nothing to q·k, and v's zero columns only add output
-    columns, so this is the unpadded function; the scale is passed as the
-    unpadded D's default."""
+    and v to pair[1] in the head dim, the output sliced back to v's width
+    (with `return_lse`, and the rows' log-sum-exp, which the padding leaves
+    as it is). Zero columns add nothing to q·k, and v's zero columns only
+    add output columns, so this is the unpadded function; the scale is
+    passed as the unpadded D's default."""
     d, dv = q.shape[-1], v.shape[-1]
     q, k = F.pad(q, (0, pair[0] - d)), F.pad(k, (0, pair[0] - d))
     v = F.pad(v, (0, pair[1] - dv))
-    out = fn(q, k, v, scale=(d ** -0.5) if scale is None else scale, **kw)
-    return out[..., :dv].contiguous()
+    scale = (d ** -0.5) if scale is None else scale
+    if return_lse:
+        out, lse = fn(q, k, v, scale=scale, return_lse=True, **kw)
+        return out[..., :dv].contiguous(), lse
+    return fn(q, k, v, scale=scale, **kw)[..., :dv].contiguous()
 
 
-def _forward(q, k, v, kernel: bool, **kw) -> torch.Tensor:
+def _forward(q, k, v, kernel: bool, return_lse: bool = False, **kw):
+    """The kernel (`kernel`) or the plain twin; with `return_lse`, (out,
+    the rows' log-sum-exp)."""
     if kernels.COST_LOG is not None:
         b, hq, lq, d = q.shape
         heads = (hq, k.shape[1], d, v.shape[-1])
@@ -80,9 +89,10 @@ def _forward(q, k, v, kernel: bool, **kw) -> torch.Tensor:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         pair = padded_pair(q.shape[-1], v.shape[-1])
         if pair is not None:
-            return padded(flash_attention_cuda, q, k, v, pair, **kw)
-        return flash_attention_cuda(q, k, v, **kw)
-    return kernels.plain(attention_ref, q, k, v, **kw)
+            return padded(flash_attention_cuda, q, k, v, pair,
+                          return_lse=return_lse, **kw)
+        return flash_attention_cuda(q, k, v, return_lse=return_lse, **kw)
+    return kernels.plain(attention_ref, q, k, v, return_lse=return_lse, **kw)
 
 
 def attention_backward(q, k, v, do, *, causal: bool = True, window: int = 0,
@@ -164,21 +174,51 @@ def _local(q, k, v, kernel: bool, q_chunk: int, kw) -> torch.Tensor:
     return _forward(q, k, v, kernel, **kw)
 
 
-def _head_range(heads: int, mesh, placements):
-    """(first head, heads) of this rank's shard of dim 1 (`heads` long, even
-    over every mesh dim that shards it) under `placements`."""
-    from torch.distributed.tensor import Shard
+def merge(o: torch.Tensor, lse: torch.Tensor, reduce=None) -> torch.Tensor:
+    """Attention over the union of disjoint key ranges, from each range's
+    output `o` (..., Dv) and row log-sum-exp `lse` (...): the ranges'
+    outputs weighted by exp(lse - max lse), over the sum of the weights
+    (flash-decoding's merge, and GSPMD's cross-shard softmax). A range in
+    which a row sees no key (lse -inf, o 0) weighs 0; a row that sees none
+    in any range gives 0, as `attention_ref` does. `reduce(x, op)` combines
+    a tensor over the ranges, op "max" or "sum" (an all-reduce over the
+    mesh dims that split the keys: two a call, the max, then the weighted
+    sums and the weights in one); by default the ranges are stacked on dim
+    0 of o and lse. Computed in f32, returned in o's dtype."""
+    if reduce is None:
+        reduce = lambda x, op: x.amax(0) if op == "max" else x.sum(0)
+    m = reduce(lse, "max")
+    w = torch.where(lse > float("-inf"), torch.exp(lse - m), 0.0)
+    both = reduce(torch.cat([w[..., None] * o.float(), w[..., None]], -1),
+                  "sum")
+    num, den = both[..., :-1], both[..., -1:]
+    return torch.where(den > 0, num / den.clamp_min(1e-30), 0.0).to(o.dtype)
 
-    first, coord = 0, mesh.get_coordinate()
-    for i, p in enumerate(placements):
-        if p == Shard(1):
-            heads //= mesh.size(i)
-            first += coord[i] * heads
-    return first, heads
+
+def _all_reduce(mesh, dims):
+    """`merge`'s `reduce` over the mesh dims `dims`: all-reduces (functional
+    collectives, counted as DTensor's are) of one rank's local tensors."""
+    import torch.distributed._functional_collectives as funcol
+
+    def reduce(x, op):
+        for i in dims:
+            x = funcol.wait_tensor(funcol.all_reduce(x, op, (mesh, i)))
+        return x
+
+    return reduce
 
 
-def _sharded(q, k, v, kernel: bool, q_chunk: int, kw) -> torch.Tensor:
-    """`attention` of DTensors q, k and v: `_local` on each rank's shard.
+def sharded_call(local, q, k, v, rows=()):
+    """`local(q, k, v, *rows, first=, lse=)` on each rank's shards of
+    DTensors q (B, Hq, L, D), k and v (B, Hkv, S, ...): attention, or its
+    plain per-slot form, over the rank's keys [first, first + S_local).
+    `rows` are per-batch-row tensors (B, ...), laid out as q's batch. Where
+    no mesh dim of more than one rank splits the keys, `local` returns the
+    rank's output (lse=False, differentiable); where some do (a cache laid
+    out over its sequence: `cache_specs`' batch-1 rule, or
+    `seq_shard_decode`), it returns (o, lse) over its own keys and the
+    ranks' pairs are merged across those mesh dims (`merge`: no gather of
+    the keys); the key split serves inference and has no gradient.
 
     Per mesh dim: where q shards the batch, so do k and v; where q shards
     its heads, k and v shard theirs if their head count divides that mesh
@@ -187,24 +227,32 @@ def _sharded(q, k, v, kernel: bool, q_chunk: int, kw) -> torch.Tensor:
     of its own query heads. A GQA group is never split unevenly: where a
     rank's query heads would not line up with whole groups, or with one
     part of one group, the heads are replicated on that mesh dim instead.
-    Anything else (a partial sum, another sharded dim) is replicated first.
-    The gradient of a replicated K or V is a partial sum on the mesh dims
-    where the query heads were split, and whole where the work was the same
-    on every rank."""
+    Where k and v shard their sequence, q is replicated on that mesh dim
+    (one decode token: where its heads shard over the same axis, they are
+    gathered for the split and cut back after). Anything else (a partial
+    sum, another sharded dim) is replicated first; a mesh dim of one rank
+    is left as it is. The gradient of a replicated K or V is a partial sum
+    on the mesh dims where the query heads were split, and whole where the
+    work was the same on every rank."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    from repro_torch.sharding.rules import placed
+    from repro_torch.sharding.rules import placed, shard_start
 
     mesh = q.device_mesh
     hq, hkv = q.shape[1], k.shape[1]
     group = hq // hkv
-    qp, kp, gp = [], [], []
-    rows, q_left, kv_left = q.shape[0], hq, hkv
+    qp, kp, gp, split = [], [], [], []
+    rows_left, q_left, kv_left = q.shape[0], hq, hkv
     for i, pl in enumerate(q.placements):
-        size = mesh.size(i)
-        if pl == Shard(0) and rows % size == 0:
-            rows //= size
+        size, kpl = mesh.size(i), k.placements[i]
+        if size == 1:
+            qp.append(pl), kp.append(kpl), gp.append(kpl)
+        elif kpl == Shard(2):
+            split.append(i)
+            qp.append(Replicate()), kp.append(kpl), gp.append(Replicate())
+        elif pl == Shard(0) and rows_left % size == 0:
+            rows_left //= size
             qp.append(Shard(0)), kp.append(Shard(0)), gp.append(Shard(0))
         elif pl == Shard(1) and q_left % size == 0:
             q_left //= size
@@ -215,24 +263,61 @@ def _sharded(q, k, v, kernel: bool, q_chunk: int, kw) -> torch.Tensor:
         else:
             qp.append(Replicate()), kp.append(Replicate())
             gp.append(Replicate())
-    q_lo, q_n = _head_range(hq, mesh, qp)
+    q_lo, q_n = shard_start(hq, mesh, qp, 1)
     aligned = (q_lo % group == 0 and q_n % group == 0 if q_n >= group else
                group % q_n == 0 and q_lo // group == (q_lo + q_n - 1) // group)
     if not aligned:  # replicate the heads rather than split a group
-        qp = [Replicate() if p == Shard(1) else p for p in qp]
-        kp = [Replicate() if p == Shard(1) else p for p in kp]
-        gp = [Replicate() if p in (Shard(1), Partial()) else p for p in gp]
-        q_lo, q_n = 0, hq
-    k_lo, _ = _head_range(hkv, mesh, kp)
+        multi = [mesh.size(i) > 1 for i in range(mesh.ndim)]
+        qp = [Replicate() if p == Shard(1) and m else p
+              for p, m in zip(qp, multi)]
+        kp = [Replicate() if p == Shard(1) and m else p
+              for p, m in zip(kp, multi)]
+        gp = [Replicate() if p in (Shard(1), Partial()) and m else p
+              for p, m in zip(gp, multi)]
+        q_lo, q_n = shard_start(hq, mesh, qp, 1)
+    k_lo, _ = shard_start(hkv, mesh, kp, 1)
+    first_key, _ = shard_start(k.shape[2], mesh, kp, 2)
     first, last = q_lo // group, (q_lo + q_n - 1) // group
     heads = slice(first - k_lo, last + 1 - k_lo)
-    q, k, v = placed(q, qp), placed(k, kp), placed(v, kp)
+    rp = [Shard(0) if p == Shard(0) else Replicate() for p in qp]
+    rows = tuple(placed(r, rp, mesh) for r in rows)
+    out_p = list(qp)
+    reduce = _all_reduce(mesh, split)
+    for x in (q, k, v):
+        if split and torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "attention over keys split across ranks serves inference "
+                "only: it has no gradient")
 
-    def body(ql, kl, vl):
-        return _local(ql, kl[:, heads], vl[:, heads], kernel, q_chunk, kw)
+    def body(ql, kl, vl, *rl):
+        kl, vl = kl[:, heads], vl[:, heads]
+        if not split:
+            return local(ql, kl, vl, *rl, first=first_key, lse=False)
+        o, lse = local(ql, kl, vl, *rl, first=first_key, lse=True)
+        return merge(o, lse, reduce)
 
-    return local_map(body, out_placements=qp, in_placements=(qp, kp, kp),
-                     in_grad_placements=(qp, gp, gp), device_mesh=mesh)(q, k, v)
+    n = len(rows)
+    o = local_map(body, out_placements=out_p,
+                  in_placements=(qp, kp, kp) + (rp,) * n,
+                  in_grad_placements=(qp, gp, gp) + (rp,) * n,
+                  device_mesh=mesh)(placed(q, qp), placed(k, kp),
+                                    placed(v, kp), *rows)
+    return placed(o, q.placements) if split else o
+
+
+def _sharded(q, k, v, kernel: bool, q_chunk: int, kw) -> torch.Tensor:
+    """`attention` of DTensors q, k and v: `_local` on each rank's shards
+    (`sharded_call`); over keys split across ranks, the kernel's
+    log-sum-exp output, with `q_offset` shifted by the rank's first key, and
+    the ranks' outputs merged."""
+
+    def local(ql, kl, vl, *, first, lse):
+        if not lse:
+            return _local(ql, kl, vl, kernel, q_chunk, kw)
+        return _forward(ql, kl, vl, kernel, return_lse=True,
+                        **dict(kw, q_offset=kw["q_offset"] - first))
+
+    return sharded_call(local, q, k, v)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -258,4 +343,4 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = ["BACKENDS", "PAD_LIMIT", "Q_CHUNK", "attention", "attention_backward",
-           "padded", "padded_pair"]
+           "merge", "padded", "padded_pair", "sharded_call"]

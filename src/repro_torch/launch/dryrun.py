@@ -17,11 +17,10 @@ tensors on the "meta" device, and the report counts
     for each attention call (analysis/cost.py::counting); per device is
     the even split over the mesh. A step that cannot run on meta tensors
     gives null, with the reason;
-  - with `flops=True`, collective bytes per device: for the train cells
-    that run sharded (launch/perf.py: the dense GQA and MoE families), the
-    operand bytes of the collectives DTensor issues for the step on the
-    production mesh as a described mesh (fake process group, fake
-    tensors), by kind; elsewhere null, with perf's reason.
+  - with `flops=True`, collective bytes per device: the operand bytes of
+    the collectives the cell's step issues on the production mesh as a
+    described mesh (fake process group, fake tensors; launch/perf.py's
+    sharded run of every train, prefill and decode cell), by kind.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single
@@ -84,8 +83,10 @@ def build_cell(arch: str, shape: ShapeConfig, mesh, *, cfg=None, tc=None,
                seq_shard_decode: bool = False) -> Dict[str, Any]:
     """{name: (tree, specs)} of one cell's state, every tensor on meta;
     `cfg` and `tc` default to the arch's config and `DRY_RUN_TRAIN`, and
-    `seq_shard_decode` shards a decode cache's sequence over "model"
-    where its heads are not (launch/perf.py's knob)."""
+    a decode cell's caches are laid out as lm.init_cache lays them out
+    on a mesh (`rules.serve_cache_specs`; `seq_shard_decode` puts their
+    sequence over "model" where their heads are not, launch/perf.py's
+    knob)."""
     from repro_torch.models import lm
     from repro_torch.train.trainer import TrainConfig, make_optimizer
 
@@ -103,12 +104,8 @@ def build_cell(arch: str, shape: ShapeConfig, mesh, *, cfg=None, tc=None,
         return state
     b = shape.global_batch
     caches = lm.init_cache(cfg, b, shape.seq_len, META)
-    cspec = rules.cache_specs(mesh, caches, b, seq_sharded=b == 1)
-    if seq_shard_decode:
-        from repro_torch.launch.perf import _seq_shard_over_model
-
-        cspec = _seq_shard_over_model(cspec, caches, mesh)
-    state["caches"] = (caches, cspec)
+    state["caches"] = (caches, rules.serve_cache_specs(mesh, caches, b,
+                                                       seq_shard_decode))
     state["batch"] = (batch, rules.batch_specs(mesh, batch))
     return state
 
@@ -192,12 +189,12 @@ def collectives(arch: str, shape: ShapeConfig, multi_pod: bool,
                 run: bool = True, *, mesh=None,
                 reduced: bool = False) -> Dict[str, Any]:
     """{"collective_bytes_per_device": by kind and "total", or None and
-    "collective_bytes_why"}: launch/perf.py's sharded run of a train cell
-    at its baseline knobs, where the cell runs sharded and `run`."""
+    "collective_bytes_why"}: launch/perf.py's sharded run of the cell at
+    its baseline knobs, where the registry runs the cell and `run`."""
     from repro_torch.launch import perf
 
     knobs = perf.parse_variant("")
-    why = perf.unsharded_reason(perf.cell_config(arch, knobs, reduced), shape)
+    why = cell_supported(arch, shape.name)
     if why is None and not run:
         why = "not counted: the step was not run (flops=False)"
     if why is not None:

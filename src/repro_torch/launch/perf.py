@@ -55,11 +55,18 @@ The ceilings are one NVIDIA H100 SXM5's at its 700 W limit
 4's 900 GB/s (the data sheet's) for the collectives. Measured on no card:
 these are counts against the data sheet.
 
-The train cells of the dense GQA and MoE families run sharded. Prefill
-and decode cells, and the MLA, recurrent and encoder-decoder families,
-report FLOPs and bytes as the dry run does (the one-device step on meta
-tensors, split evenly over the mesh), with null collective bytes and the
-ROADMAP item that adds them.
+Every cell the registry runs (`configs/registry.py::cell_supported`) is
+laid out on the mesh, as the JAX module's `compile_cell` lays it out:
+train cells by the params', Adam state's and batch's rules; prefill cells
+by the params' and batch's, their caches made inside on the mesh
+(`lm.init_cache(mesh=)`); decode cells with their caches laid out by
+`rules.serve_cache_specs` (the batch-1 `long_500k` cells' sequence, or a
+recurrent state's K dim, over the data axes; under `seq_shard_decode` the
+sequence over "model" where the heads are not), one token decoded at the
+last position. A cell the registry skips (a pure-attention arch at
+`long_500k`) reports FLOPs and bytes as the dry run does (the one-device
+step on meta tensors, split evenly over the mesh), with null collective
+bytes and the registry's reason.
 
 Usage:
   python -m repro_torch.launch.perf --arch olmoe-1b-7b \\
@@ -82,7 +89,8 @@ from repro_torch.analysis.cost import (CARD, HBM_BYTES_PER_S, PEAK_BF16_FLOPS,
                                        PEAK_F32_FLOPS, POWER_LIMIT_WATTS,
                                        counting, work_of)
 from repro_torch.configs.base import ShapeConfig, shape_by_name
-from repro_torch.configs.registry import ARCH_IDS, get_config, input_specs
+from repro_torch.configs.registry import (ARCH_IDS, cell_supported,
+                                          get_config, input_specs)
 from repro_torch.launch.mesh import Mesh, described, make_production_mesh
 from repro_torch.sharding import rules
 
@@ -103,12 +111,6 @@ _KNOB_DEFAULTS = {
     "cache_bf16": 1,        # parsed, read by nothing (as in the JAX module)
 }
 
-#: the block kinds whose train step runs sharded
-SHARDED_KINDS = frozenset({"full", "swa", "full_moe"})
-#: the ROADMAP item that lays the other cells out under DTensor
-PENDING = "ROADMAP A17"
-
-
 def parse_variant(s: str) -> Dict:
     knobs = dict(_KNOB_DEFAULTS)
     if s:
@@ -126,37 +128,28 @@ def cell_config(arch: str, knobs: Dict, reduced: bool = False):
                                moe_groups=int(knobs["moe_groups"]))
 
 
-def unsharded_reason(cfg, shape: ShapeConfig) -> Optional[str]:
-    """None where the cell's step runs sharded on the mesh; else why not."""
-    kinds = {k for blocks, _ in cfg.segments + cfg.encoder_segments
-             for k in blocks}
-    if shape.kind != "train":
-        return (f"{shape.kind} cells are not laid out under DTensor yet "
-                f"({PENDING})")
-    if not kinds <= SHARDED_KINDS:
-        return (f"blocks {sorted(kinds - SHARDED_KINDS)} are not laid out "
-                f"under DTensor yet ({PENDING})")
-    return None
-
-
 class Cell(NamedTuple):
-    """A train cell laid out on a described mesh: fake DTensors, and its
-    step."""
+    """A cell laid out on a described mesh: fake DTensors (`opt` None for
+    prefill and decode, `caches` None but for decode), and `run()`, its
+    step once (train: `step(params, opt, batch)`; prefill: `lm.prefill`;
+    decode: `lm.decode_step` at the last position)."""
 
     params: Any
     opt: Any
     batch: Dict[str, torch.Tensor]
     step: Any
+    caches: Any = None
 
 
 @contextlib.contextmanager
 def build_cell(arch: str, shape: ShapeConfig, knobs: Dict,
                multi_pod: bool = False, *, mesh: Optional[Mesh] = None,
                reduced: bool = False) -> Iterator[Cell]:
-    """The train cell of `arch` at `shape` under `knobs` (the JAX module's
-    `compile_cell`), laid out on `mesh` (the production mesh by default) as
-    a described mesh with fake tensors, for the block. The knobs go in as
-    arguments; `moe_ep_only` sets the rules' one global, put back on exit."""
+    """The cell of `arch` at `shape` under `knobs` (the JAX module's
+    `compile_cell`: train, prefill or decode), laid out on `mesh` (the
+    production mesh by default) as a described mesh with fake tensors, for
+    the block. The knobs go in as arguments; `moe_ep_only` sets the rules'
+    one global, put back on exit."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.models import lm
@@ -170,15 +163,29 @@ def build_cell(arch: str, shape: ShapeConfig, knobs: Dict,
     rules.set_moe_ep_only(bool(knobs["moe_ep_only"]))
     try:
         with described(mesh) as laid, FakeTensorMode():
-            tc = TrainConfig(remat=knobs["remat"], accum_steps=knobs["accum"])
             params = lm.init_params(cfg, torch.Generator(), "cpu")
-            params, opt = reshard_state(
-                (params, make_optimizer(tc).init(params)), laid)
             batch = {k: torch.zeros(v.shape, dtype=v.dtype)
                      for k, v in input_specs(cfg, shape).items()}
-            step = make_train_step(cfg, tc, ce_chunk=knobs["ce_chunk"],
-                                   q_chunk=knobs["q_chunk"])
-            yield Cell(params, opt, batch, step)
+            if shape.kind == "train":
+                tc = TrainConfig(remat=knobs["remat"],
+                                 accum_steps=knobs["accum"])
+                params, opt = reshard_state(
+                    (params, make_optimizer(tc).init(params)), laid)
+                step = make_train_step(cfg, tc, ce_chunk=knobs["ce_chunk"],
+                                       q_chunk=knobs["q_chunk"])
+                yield Cell(params, opt, batch, step)
+            elif shape.kind == "prefill":
+                yield Cell(reshard_state(params, laid), None, batch,
+                           lambda p, o, b: lm.prefill(cfg, p, b,
+                                                      shape.seq_len))
+            else:
+                b = shape.global_batch
+                caches = lm.init_cache(cfg, b, shape.seq_len, "cpu", laid,
+                                       bool(knobs["seq_shard_decode"]))
+                yield Cell(reshard_state(params, laid), None, batch,
+                           lambda p, o, bt: lm.decode_step(
+                               cfg, p, caches, bt["tokens"],
+                               shape.seq_len - 1), caches)
     finally:
         rules.set_moe_ep_only(old)
 
@@ -244,16 +251,19 @@ def _local_bytes(tree) -> int:
 def sharded_counts(arch: str, shape: ShapeConfig, knobs: Dict,
                    multi_pod: bool = False, *, mesh: Optional[Mesh] = None,
                    reduced: bool = False) -> Dict[str, Any]:
-    """One device's counts of the cell's train step run on the mesh:
-    flops, bytes, score bytes, collectives by kind, flash launches, peak
-    temp and argument bytes."""
-    from repro_torch.train.trainer import place_batch
+    """One device's counts of the cell's step run on the mesh: flops,
+    bytes, score bytes, collectives by kind, flash launches, peak temp and
+    argument bytes (params, Adam state, batch and caches)."""
+    from repro_torch.models.lm import place_batch
 
     with build_cell(arch, shape, knobs, multi_pod, mesh=mesh,
                     reduced=reduced) as cell:
         batch = place_batch(cell.batch, cell.params)
-        args = _local_bytes((cell.params, cell.opt, batch))
-        with counting(kv_len=shape.seq_len) as counted, LiveBytes() as live:
+        args = _local_bytes((cell.params, cell.opt, batch, cell.caches))
+        grad = torch.enable_grad() if shape.kind == "train" else \
+            torch.no_grad()
+        with counting(kv_len=shape.seq_len) as counted, LiveBytes() as live, \
+                grad:
             cell.step(cell.params, cell.opt, batch)
     flops, nbytes = work_of(counted)
     return {"flops": flops, "bytes": nbytes,
@@ -294,24 +304,6 @@ def unsharded_counts(arch: str, shape: ShapeConfig, knobs: Dict,
                               for t, s in state.values())}
 
 
-def _seq_shard_over_model(cspec, caches, mesh):
-    """Shard a decode KV cache's sequence dim over "model" where its heads
-    are not TP-sharded (the JAX module's `_seq_shard_over_model`)."""
-    from torch.utils._pytree import tree_leaves, tree_unflatten, tree_flatten
-
-    specs, treedef = tree_flatten(cspec, is_leaf=rules.is_spec)
-    out = []
-    for spec, leaf in zip(specs, tree_leaves(caches)):
-        if (leaf.dim() >= 5 and spec[2] is None
-                and leaf.shape[3] % mesh.shape["model"] == 0
-                and leaf.shape[3] > 1024):
-            lst = list(spec) + [None] * (leaf.dim() - len(spec))
-            lst[3] = "model" if lst[3] is None else lst[3]
-            spec = tuple(lst)
-        out.append(spec)
-    return tree_unflatten(out, treedef)
-
-
 def measure(arch: str, shape_name: str, variant: str = "",
             multi_pod: bool = False, *, mesh: Optional[Mesh] = None,
             reduced: bool = False) -> Dict[str, Any]:
@@ -319,8 +311,7 @@ def measure(arch: str, shape_name: str, variant: str = "",
     device of `mesh` (the production mesh by default)."""
     knobs = parse_variant(variant)
     shape = shape_by_name(shape_name)
-    cfg = cell_config(arch, knobs, reduced)
-    why = unsharded_reason(cfg, shape)
+    why = cell_supported(arch, shape_name)
     t0 = time.perf_counter()
     run = unsharded_counts if why else sharded_counts
     got = run(arch, shape, knobs, multi_pod, mesh=mesh, reduced=reduced)

@@ -35,8 +35,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import is_dtensor
 from repro_torch.kernels.attention import ops
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.sharding import rules
 from repro_torch.sharding.rules import (BATCH_AXES, matmul, shard_hint,
                                         split_last)
 
@@ -103,18 +105,119 @@ def gqa_cache_init(cfg, batch: int, max_seq: int, window: int, dtype,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _slot_attention(q, ck, cv, valid, hkv):
+def _slot_attention(q, ck, cv, valid, hkv, return_lse: bool = False):
     """One-token attention over every cache slot under a (.., S) `valid`
     mask that broadcasts to (B, Hq, L, S): the JAX package's einsum and
-    softmax, in f32."""
+    softmax, in f32. With `return_lse`, (that, each row's log-sum-exp of
+    its valid scores, -inf where none is valid: `ops.merge`'s input)."""
     b, hq, l, hd = q.shape
     s_max = ck.shape[2]
     s = torch.matmul(q.reshape(b, hkv, hq // hkv * l, hd).float(),
                      ck.float().transpose(-1, -2)) * (hd ** -0.5)
     s = s.reshape(b, hq, l, s_max).masked_fill(~valid, _NEG)
     p = torch.softmax(s, dim=-1)
-    return torch.matmul(p.reshape(b, hkv, -1, s_max),
-                        cv.float()).reshape(b, hq, l, hd).to(q.dtype)
+    o = torch.matmul(p.reshape(b, hkv, -1, s_max),
+                     cv.float()).reshape(b, hq, l, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)
+    seen = valid.expand(s.shape).any(-1)
+    return o, torch.where(seen, lse, float("-inf"))
+
+
+def _ring_valid(kpos, pos, s_max: int, window: int):
+    """Which ring slots `kpos` hold a key visible at absolute position
+    `pos` (a scalar, or (B, 1) per slot): the slot's absolute position,
+    within the window and written."""
+    abs_pos = kpos + (pos // s_max) * s_max
+    abs_pos = torch.where(kpos > pos % s_max, abs_pos - s_max, abs_pos)
+    return (abs_pos <= pos) & (abs_pos > pos - window) & (abs_pos >= 0)
+
+
+def _cache_write(cache: "KVCache", k, v, cache_pos, l: int, ring: bool,
+                 per_slot: bool) -> None:
+    """k and v (B, Hkv, L, hd) into the cache in place, as the JAX
+    package's functional updates place them: per slot at each row's
+    position (ring: modulo the window), the last `window` positions of the
+    ring, or L rows from a scalar start clamped to fit
+    (`dynamic_update_slice`). DTensor caches take each rank's part into its
+    local shard (`rules.write_rows`)."""
+    s_max = cache.k.shape[2]
+    if per_slot:
+        slot = (cache_pos % s_max) if ring else cache_pos
+        rows = torch.arange(k.shape[0], device=k.device)
+
+        def write(d, x, first, row0):
+            n = d.shape[0]
+            sl, bi = ((slot, rows) if n == rows.shape[0] else
+                      (slot[row0:row0 + n], rows[:n]))
+            if first == 0 and d.shape[2] == s_max:
+                d[bi, :, sl] = x[:, :, 0]
+                return
+            sl = sl - first
+            inside = (sl >= 0) & (sl < d.shape[2])
+            sl = sl.clamp(0, d.shape[2] - 1)
+            d[bi, :, sl] = torch.where(inside[:, None, None], x[:, :, 0],
+                                       d[bi, :, sl])
+    elif ring:
+        # keep only the last `window` positions
+        take = min(l, s_max)
+        slots = (cache_pos + l - take + torch.arange(
+            take, device=k.device)) % s_max
+
+        def write(d, x, first, row0):
+            if first == 0 and d.shape[2] == s_max:
+                d[:, :, slots] = x[:, :, l - take:]
+                return
+            p0 = int(cache_pos) + l - take
+            keep = [j for j in range(take)
+                    if 0 <= (p0 + j) % s_max - first < d.shape[2]]
+            if keep:
+                at = torch.tensor([(p0 + j) % s_max - first for j in keep],
+                                  device=d.device)
+                d[:, :, at] = x[:, :, l - take:][:, :, torch.tensor(
+                    keep, device=d.device)]
+    else:
+        # dynamic_update_slice semantics: the start clamps so that the L new
+        # positions fit
+        start = min(max(int(cache_pos), 0), s_max - l)
+
+        def write(d, x, first, row0):
+            lo, hi = max(start, first), min(start + l, first + d.shape[2])
+            if lo < hi:
+                d[:, :, lo - first:hi - first] = (
+                    x if hi - lo == l else x[:, :, lo - start:hi - start])
+    rules.write_rows(cache.k, k, write, 2)
+    rules.write_rows(cache.v, v, write, 2)
+
+
+def _slot_attend(q, ck, cv, cache_pos, ring: bool, per_slot: bool,
+                 window: int):
+    """The plain one-token attention over the cache's slots (ring or per
+    slot) under the JAX package's validity masks; on DTensors each rank
+    over its shards, the ranks' parts merged where the slots are split
+    (`ops.sharded_call`)."""
+    s_max = ck.shape[2]
+    rows = (cache_pos,) if per_slot else ()
+
+    def local(ql, kl, vl, *pos, first, lse):
+        kpos = torch.arange(first, first + kl.shape[2], device=kl.device)
+        if per_slot:
+            p = pos[0][:, None]
+            if ring:
+                valid = _ring_valid(kpos[None, :], p, s_max, window)
+            else:
+                valid = kpos[None, :] <= p
+                if window > 0:
+                    valid &= kpos[None, :] > p - window
+            valid = valid[:, None, None, :]
+        else:
+            valid = _ring_valid(kpos, cache_pos, s_max, window)
+        return _slot_attention(ql, kl, vl, valid, kl.shape[1], return_lse=lse)
+
+    if is_dtensor(q):
+        return ops.sharded_call(local, q, ck, cv, rows)
+    return local(q, ck, cv, *rows, first=0, lse=False)
 
 
 def gqa_apply(
@@ -159,52 +262,16 @@ def gqa_apply(
         ck, cv = cache.k, cache.v
         s_max = ck.shape[2]
         ring = window > 0 and s_max == window
-        if per_slot:
-            # one-token decode with heterogeneous per-slot positions
-            slot = (cache_pos % s_max) if ring else cache_pos
-            bi = torch.arange(b, device=x.device)
-            ck[bi, :, slot] = k[:, :, 0].to(ck.dtype)
-            cv[bi, :, slot] = v[:, :, 0].to(cv.dtype)
-        elif ring:
-            # Ring cache: keep only the last `window` positions.
-            take = min(l, s_max)
-            slots = (cache_pos + l - take + torch.arange(take, device=x.device)) % s_max
-            ck[:, :, slots] = k[:, :, l - take:].to(ck.dtype)
-            cv[:, :, slots] = v[:, :, l - take:].to(cv.dtype)
-        else:
-            # dynamic_update_slice semantics: the start clamps so that the
-            # L new positions fit
-            start = min(max(int(cache_pos), 0), s_max - l)
-            ck[:, :, start:start + l] = k.to(ck.dtype)
-            cv[:, :, start:start + l] = v.to(cv.dtype)
+        _cache_write(cache, k, v, cache_pos, l, ring, per_slot)
         new_cache = KVCache(ck, cv)
-        if per_slot:
-            # attend over slots valid for each batch row
-            kpos_ring = torch.arange(s_max, device=x.device)
-            if ring:
-                base = (cache_pos // s_max)[:, None] * s_max
-                abs_pos = kpos_ring[None, :] + base
-                abs_pos = torch.where(kpos_ring[None, :] > (cache_pos % s_max)[:, None],
-                                      abs_pos - s_max, abs_pos)
-                valid = (abs_pos <= cache_pos[:, None]) & \
-                        (abs_pos > (cache_pos - window)[:, None]) & (abs_pos >= 0)
-            else:
-                valid = kpos_ring[None, :] <= cache_pos[:, None]
-                if window > 0:
-                    valid &= kpos_ring[None, :] > (cache_pos - window)[:, None]
-            o = _slot_attention(q, ck, cv, valid[:, None, None, :], hkv)
-        elif ring and l > 1:
+        if per_slot or (ring and l == 1):
+            # one token over the slots valid for each batch row (per slot),
+            # or over the ring's slots at their ring-aware positions
+            o = _slot_attend(q, ck, cv, cache_pos, ring, per_slot, window)
+        elif ring:
             # SWA prefill (single-shot, cache_pos == 0): attend over the local
             # window of the fresh k/v directly; the ring holds the tail.
             o = ops.attention(q, k, v, causal=True, window=window)
-        elif ring:
-            # SWA decode: attend over ring slots with ring-aware positions.
-            kpos_ring = torch.arange(s_max, device=x.device)
-            slot = cache_pos % s_max
-            abs_pos = kpos_ring + (cache_pos // s_max) * s_max
-            abs_pos = torch.where(kpos_ring > slot, abs_pos - s_max, abs_pos)
-            valid = (abs_pos <= cache_pos) & (abs_pos > cache_pos - window) & (abs_pos >= 0)
-            o = _slot_attention(q, ck, cv, valid, hkv)
         else:
             # causal w.r.t. absolute positions: kpos <= qpos also masks the
             # not-yet-written tail of the cache (all written slots < pos+l).
@@ -260,13 +327,15 @@ def mla_apply(
     positions = positions if positions is not None else torch.arange(l, device=x.device)
 
     # queries
-    cq = rms_norm(x @ params["w_dq"].to(dt), params["q_scale"], cfg.norm_eps)
-    q = (cq @ params["w_uq"].to(dt)).reshape(b, l, hq, nope + rope)
+    cq = rms_norm(matmul(x, params["w_dq"].to(dt)), params["q_scale"],
+                  cfg.norm_eps)
+    q = split_last(matmul(cq, rules.head_columns(params["w_uq"].to(dt), hq)),
+                   (hq, nope + rope))
     q_rope = apply_rope(q[..., nope:].transpose(1, 2), positions, cfg.rope_theta)  # (B,H,L,rope)
     q_nope = q[..., :nope].transpose(1, 2)
 
     # compressed kv latent + shared rotary key
-    dkv = x @ params["w_dkv"].to(dt)                        # (B, L, kvr + rope)
+    dkv = matmul(x, params["w_dkv"].to(dt))                 # (B, L, kvr + rope)
     c_kv = rms_norm(dkv[..., :kvr], params["kv_scale"], cfg.norm_eps)
     k_rope_new = apply_rope(dkv[..., kvr:][:, None], positions, cfg.rope_theta)[:, 0]
 
@@ -276,8 +345,15 @@ def mla_apply(
         # positions fit
         s_max = cache.c_kv.shape[1]
         start = min(max(int(cache_pos), 0), s_max - l)
-        cache.c_kv[:, start:start + l] = c_kv.to(cache.c_kv.dtype)
-        cache.k_rope[:, start:start + l] = k_rope_new.to(cache.k_rope.dtype)
+
+        def write(dst, src, first, row0):
+            lo, hi = max(start, first), min(start + l, first + dst.shape[1])
+            if lo < hi:
+                dst[:, lo - first:hi - first] = (
+                    src if hi - lo == l else src[:, lo - start:hi - start])
+
+        rules.write_rows(cache.c_kv, c_kv, write, 1)
+        rules.write_rows(cache.k_rope, k_rope_new, write, 1)
         new_cache = cache
         c_kv_all, k_rope_all = cache.c_kv, cache.k_rope
         q_offset = int(cache_pos)
@@ -290,10 +366,11 @@ def mla_apply(
     if cfg.mla_absorb:
         # absorbed form: W_uk folds into the query and W_uv into the output,
         # so keys and values are the latent, shared across heads
-        w_ukv = params["w_ukv"].to(dt).reshape(kvr, hq, nope + vd)
+        w_ukv = split_last(params["w_ukv"].to(dt), (hq, nope + vd))
         w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]   # (kvr, H, nope), (kvr, H, vd)
         q_lat = torch.einsum("bhln,khn->bhlk", q_nope, w_uk)
         q_eff = torch.cat([q_lat, q_rope], dim=-1)          # (B, H, L, kvr + rope)
+        q_eff = shard_hint(q_eff, BATCH_AXES, "model", None, None)
         k_eff = torch.cat([c_kv_all, k_rope_all.to(c_kv_all.dtype)],
                           dim=-1)[:, None]                  # (B, 1, S, kvr + rope)
         o_lat = ops.attention(q_eff, k_eff, c_kv_all[:, None], causal=True,
@@ -301,16 +378,21 @@ def mla_apply(
         o = torch.einsum("bhlk,khv->bhlv", o_lat, w_uv)
     else:
         # naive form: expand the latent to per-head keys and values
-        ukv = (c_kv_all @ params["w_ukv"].to(dt)).reshape(b, -1, hq, nope + vd)
+        ukv = split_last(matmul(c_kv_all, rules.head_columns(
+            params["w_ukv"].to(dt), hq)), (hq, nope + vd))
         k_nope = ukv[..., :nope].transpose(1, 2)            # (B, H, S, nope)
         v = ukv[..., nope:].transpose(1, 2)                 # (B, H, S, vd)
         k_rope_b = k_rope_all[:, None].expand(b, hq, k_rope_all.shape[1], rope)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         k_full = torch.cat([k_nope, k_rope_b], dim=-1)
+        q_full = shard_hint(q_full, BATCH_AXES, "model", None, None)
+        k_full = shard_hint(k_full, BATCH_AXES, "model", None, None)
+        v = shard_hint(v, BATCH_AXES, "model", None, None)
         o = ops.attention(q_full, k_full, v, causal=True, q_offset=q_offset,
                           scale=scale)
-    out = o.transpose(1, 2).reshape(b, l, hq * vd) @ params["wo"].to(dt)
-    return out, new_cache
+    o = shard_hint(o, BATCH_AXES, "model", None, None)
+    out = matmul(o.transpose(1, 2).reshape(b, l, hq * vd), params["wo"].to(dt))
+    return shard_hint(out, BATCH_AXES, None, None), new_cache
 
 
 # -- cross attention (whisper decoder) -----------------------------------------
@@ -328,12 +410,15 @@ def cross_init(gen: torch.Generator, cfg, dtype, lead=()):
 
 def cross_kv(params, cfg, enc: torch.Tensor):
     """The encoder's K/V (B, H, T, hd), computed once at prefill and reused
-    every decode step."""
-    b, t, d = enc.shape
+    every decode step (heads pinned to "model", batch to the data axes)."""
     hq, hd = cfg.num_heads, cfg.hd
-    k = (enc @ params["wk"].to(enc.dtype)).reshape(b, t, hq, hd).transpose(1, 2)
-    v = (enc @ params["wv"].to(enc.dtype)).reshape(b, t, hq, hd).transpose(1, 2)
-    return k, v
+    dt = enc.dtype
+
+    def heads(w):
+        x = split_last(matmul(enc, w.to(dt)), (hq, hd)).transpose(1, 2)
+        return shard_hint(x, BATCH_AXES, "model", None, None)
+
+    return heads(params["wk"]), heads(params["wv"])
 
 
 def cross_apply(params, cfg, x: torch.Tensor,
@@ -341,10 +426,14 @@ def cross_apply(params, cfg, x: torch.Tensor,
     """The decoder's L queries over the encoder's T keys, non-causal."""
     b, l, d = x.shape
     hq, hd = cfg.num_heads, cfg.hd
-    q = (x @ params["wq"].to(x.dtype)).reshape(b, l, hq, hd).transpose(1, 2)
+    q = split_last(matmul(x, params["wq"].to(x.dtype)), (hq, hd)).transpose(1, 2)
+    q = shard_hint(q, BATCH_AXES, "model", None, None)
     k, v = kv
     o = ops.attention(q, k, v, causal=False)
-    return o.transpose(1, 2).reshape(b, l, hq * hd) @ params["wo"].to(x.dtype)
+    o = shard_hint(o, BATCH_AXES, "model", None, None)
+    out = matmul(o.transpose(1, 2).reshape(b, l, hq * hd),
+                 params["wo"].to(x.dtype))
+    return shard_hint(out, BATCH_AXES, None, None)
 
 
 __all__ = ["KVCache", "MLACache", "cross_apply", "cross_init", "cross_kv",

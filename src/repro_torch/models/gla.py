@@ -22,6 +22,14 @@ the whole body per chunk; the inter-chunk parts are added to the
 intra-chunk products at once, as JAX adds `y_intra + y_inter`, and nothing
 is written in place, so the scan is differentiable. A prompt of prime
 length takes chunk 1: L steps.
+
+On DTensors (a step or a cache laid out over a mesh) both run on each
+rank's shards through `local_map` (`_sharded`): every (batch row, head)
+is independent, so batch and head shards compute their own rows. A state
+laid out over its K dim (the JAX cache rule for a batch-1 cache, under
+`long_500k`) splits the q·k and q·S contractions: each rank's output is a
+partial sum over its K rows, reduced by the all-reduce GSPMD inserts, and
+its state keeps its own K rows.
 """
 from __future__ import annotations
 
@@ -41,6 +49,45 @@ def chunk_size(l: int, chunk: int) -> int:
     return c
 
 
+def _sharded(body, q, k, v, log_a, gate_b, s, k_dim: int):
+    """`body(q, k, v, log_a, gate_b, s)` on each rank's shards of DTensor
+    inputs (`k_dim` is q's and k's K dim; s is (B, H, K, V)). Per mesh dim
+    of more than one rank: where the state shards its K dim, q and k shard
+    theirs and v and the gates are whole, the output a partial sum (reduced
+    here), the state its K rows (no gradient: a cache's layout); else where
+    q shards its batch or heads, every input and the state shard the same
+    dim; else all are replicated. A plain state (a forward's zeros) is laid
+    out as the rows it meets. Returns (y, state)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels import is_dtensor
+    from repro_torch.sharding.rules import placed
+
+    mesh = q.device_mesh
+    qp, vp, sp, yp = [], [], [], []
+    for i, pl in enumerate(q.placements):
+        st = s.placements[i] if is_dtensor(s) else Replicate()
+        if mesh.size(i) > 1 and st == Shard(2):
+            qp.append(Shard(k_dim)), vp.append(Replicate())
+            sp.append(st), yp.append(Partial())
+        elif pl in (Shard(0), Shard(1)):
+            qp.append(pl), vp.append(pl), sp.append(pl), yp.append(pl)
+        else:
+            qp.append(Replicate()), vp.append(Replicate())
+            sp.append(Replicate()), yp.append(Replicate())
+    if Partial() in yp and any(x.requires_grad for x in (q, k, v))  \
+            and torch.is_grad_enabled():
+        raise NotImplementedError("a state split over its K dim is a cache's "
+                                  "layout: it has no gradient")
+    ins = (qp, qp, vp, vp, vp, sp)
+    y, state = local_map(body, out_placements=(yp, sp), in_placements=ins,
+                         in_grad_placements=ins, device_mesh=mesh)(
+        *(placed(x, p, mesh) for x, p in zip(
+            (q, k, v, log_a, gate_b, s), ins)))
+    return placed(y, [Replicate() if p == Partial() else p for p in yp]), state
+
+
 def gla_chunked(
     q: torch.Tensor,        # (B, H, L, K)
     k: torch.Tensor,        # (B, H, L, K)
@@ -51,6 +98,11 @@ def gla_chunked(
     chunk: int = 256,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, H, L, V) in q's dtype, final state (B, H, K, V) f32)."""
+    from repro_torch.kernels import is_dtensor
+
+    if is_dtensor(q):
+        return _sharded(lambda *a: gla_chunked(*a, chunk), q, k, v, log_a,
+                        gate_b, s0, 3)
     b, h, l, kk = q.shape
     vv = v.shape[-1]
     c = chunk_size(l, chunk)
@@ -103,6 +155,10 @@ def gla_ref(q, k, v, log_a, gate_b, s0):
 def gla_step(q, k, v, log_a, gate_b, s):
     """One decode step. q/k: (B, H, K); v: (B, H, V); gates: (B, H);
     s: (B, H, K, V) f32."""
+    from repro_torch.kernels import is_dtensor
+
+    if is_dtensor(q):
+        return _sharded(gla_step, q, k, v, log_a, gate_b, s, 2)
     f32 = torch.float32
     s = torch.exp(log_a.to(f32))[..., None, None] * s + \
         gate_b.to(f32)[..., None, None] * (

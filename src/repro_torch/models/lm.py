@@ -30,6 +30,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import (chunked_cross_entropy, dense_init,
                                        embed_init, rms_norm)
 from repro_torch.models.attention import cross_kv
+from repro_torch.kernels import is_dtensor
+from repro_torch.sharding import rules
 from repro_torch.sharding.rules import BATCH_AXES, shard_hint
 from repro_torch.models.stack import (check_ported, shared_block_init,
                                       stack_apply, stack_cache_init,
@@ -145,8 +147,11 @@ def compute_params(cfg: ModelConfig, params) -> Any:
 
 
 def encode(cfg: ModelConfig, params, frames, remat: str = "none") -> torch.Tensor:
-    """Encoder side (whisper): frames (B, T, d) stub embeddings -> (B, T, d)."""
-    x = torch.as_tensor(frames, device=params["embed"].device).to(_dtype(cfg))
+    """Encoder side (whisper): frames (B, T, d) stub embeddings -> (B, T, d)
+    (batch-sharded frames, `place_batch`'s, for DTensor params)."""
+    if not is_dtensor(frames):
+        frames = torch.as_tensor(frames, device=params["embed"].device)
+    x = shard_hint(frames.to(_dtype(cfg)), BATCH_AXES, None, None)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = stack_apply(params["enc_segments"], cfg, cfg.encoder_segments, x,
                        positions=positions, remat=remat)
@@ -158,6 +163,34 @@ def _encode_batch(cfg: ModelConfig, params, batch, remat: str = "none"):
             if cfg.is_encoder_decoder else None)
 
 
+def place_batch(batch, params):
+    """`batch` on the params' device; on their mesh where they are DTensors,
+    laid out by `rules.batch_specs` (every rank holds the whole batch, as
+    every host does in the JAX launcher, and keeps its own rows; a value
+    that is a DTensor already is kept). The params are sharded or not as
+    their embedding is."""
+    embed = params["embed"]
+    if not is_dtensor(embed):
+        return {k: torch.as_tensor(v, device=embed.device)
+                for k, v in batch.items()}
+    mesh = embed.device_mesh
+    shardings = rules.to_shardings(rules.batch_specs(mesh, batch), mesh)
+    return {k: v if is_dtensor(v) else rules.distribute(
+                torch.as_tensor(v, device=embed.device), shardings[k])
+            for k, v in batch.items()}
+
+
+def _sharded(params) -> bool:
+    return is_dtensor(params["embed"])
+
+
+def _embed(cfg: ModelConfig, params, tokens) -> torch.Tensor:
+    """The token rows (`embed_rows`: each rank's own rows of a
+    vocab-sharded table), pinned to batch-sharded rows."""
+    x = embed_rows(params["embed"], tokens.long()).to(_dtype(cfg))
+    return shard_hint(x, BATCH_AXES, None, None)
+
+
 def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """`table[ids]`. For a DTensor table, each rank's rows (`local_map`),
     as GSPMD partitions the gather: the table's FSDP shards gathered
@@ -166,8 +199,6 @@ def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     the vocab; their gradient lands in the rank's own vocab shard.
     DTensor's own gather, and its backward's `index_put`, fail on some
     layouts (torch 2.11: an unnormalized `Shard(-1)`)."""
-    from repro_torch.kernels import is_dtensor
-
     if not is_dtensor(table):
         return table[ids]
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -213,13 +244,14 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     losses summed, an f32 0 for a dense model). An encoder-decoder model
     reads `batch["frames"]` too. `q_chunk` is the query rows the attention
     backward recomputes at once."""
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    tokens = batch["tokens"]
+    if not is_dtensor(tokens):
+        tokens = torch.as_tensor(tokens, device=params["embed"].device)
     # the rows of the ("model", "data")-sharded embedding for batch-sharded
     # tokens, pinned to batch-sharded rows: the JAX package's pin here fails
     # under jax 0.9 (DuplicateSpecError, "data" on two dims); here the
     # partial rows of the vocab shards are reduced over "model" instead
-    x = embed_rows(params["embed"], tokens.long()).to(_dtype(cfg))
-    x = shard_hint(x, BATCH_AXES, None, None)
+    x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     x, aux = stack_apply(params["segments"], cfg, cfg.segments, x,
                          positions=positions, shared=params.get("shared"),
@@ -246,26 +278,50 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
 
 def logits_for(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
+    """f32 logits of `hidden` by the LM head (the embedding's transpose
+    where tied); for DTensors the column-parallel product on each rank's
+    vocab shard (`rules.matmul`), the logits left sharded over the vocab."""
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     h = head.T if cfg.tie_embeddings else head
-    return (hidden @ h.to(hidden.dtype)).float()
+    return rules.matmul(hidden, h.to(hidden.dtype)).float()
 
 
 # -------------------------------------------------------------------- serving
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    return stack_cache_init(cfg, cfg.segments, batch, max_seq, _dtype(cfg),
-                            resolve_device(device), enc_len=cfg.encoder_len)
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
+               mesh=None, seq_shard_decode: bool = False):
+    """Zeroed caches for `batch` rows of `max_seq` positions on `device`;
+    with a `mesh`, DTensors laid out by `rules.serve_cache_specs` (batch
+    over the data axes, heads over "model"; a batch of 1 puts the sequence,
+    or a recurrent state's K dim, over the data axes; `seq_shard_decode`
+    the sequence over "model" where the heads are not)."""
+    caches = stack_cache_init(cfg, cfg.segments, batch, max_seq, _dtype(cfg),
+                              resolve_device(device), enc_len=cfg.encoder_len)
+    if mesh is None:
+        return caches
+    return rules.lay_out_cache(caches, mesh, rules.serve_cache_specs(
+        mesh, caches, batch, seq_shard_decode))
 
 
-def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], max_seq: int):
+def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            max_seq: int):
     """Run the prompt through the stack, filling new caches (an
     encoder-decoder model's cross K/V first, from `batch["frames"]`).
-    Returns (last_logits (B, 1, V), caches)."""
+    Returns (last_logits (B, 1, V), caches). With DTensor params the inputs
+    are laid out by `place_batch` and the caches by `init_cache`'s mesh
+    rule on the params' mesh."""
+    if not _sharded(params):
+        return _prefill(cfg, params, place_batch(batch, params), max_seq, None)
+    with rules.replicating(True):
+        return _prefill(cfg, params, place_batch(batch, params), max_seq,
+                        params["embed"].device_mesh)
+
+
+def _prefill(cfg: ModelConfig, params, batch, max_seq: int, mesh):
+    tokens = batch["tokens"]
     device = params["embed"].device
-    tokens = torch.as_tensor(batch["tokens"], device=device)
     b, l = tokens.shape
-    caches = init_cache(cfg, b, max_seq, device)
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    caches = init_cache(cfg, b, max_seq, device, mesh)
+    x = _embed(cfg, params, tokens)
     positions = torch.arange(l, device=device)
     enc_out = _encode_batch(cfg, params, batch)
     if enc_out is not None:
@@ -276,8 +332,8 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], max_seq: i
             for layer in range(rep):
                 k, v = cross_kv({n: w[layer] for n, w in cross.items()}, cfg,
                                 enc_out)
-                cache["cross_k"][layer] = k
-                cache["cross_v"][layer] = v
+                rules.assign(cache["cross_k"][layer], k)
+                rules.assign(cache["cross_v"][layer], v)
     x, caches = stack_prefill(params["segments"], caches, cfg, cfg.segments, x,
                               positions=positions, shared=params.get("shared"),
                               enc_out=enc_out)
@@ -288,10 +344,19 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], max_seq: i
 def decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor, pos):
     """tokens: (B, 1) the token decoded at absolute position `pos` (an int
     or 0-d tensor, or a (B,) tensor per slot). Writes `caches` in place and
-    returns (logits (B, V), caches)."""
-    device = params["embed"].device
-    tokens = torch.as_tensor(tokens, device=device)
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    returns (logits (B, V), caches). With DTensor params and caches (from
+    `prefill` or `init_cache(mesh=)`) the tokens are laid out by
+    `place_batch`."""
+    if not _sharded(params):
+        tokens = torch.as_tensor(tokens, device=params["embed"].device)
+        return _decode_step(cfg, params, caches, tokens, pos)
+    with rules.replicating(True):
+        tokens = place_batch({"tokens": tokens}, params)["tokens"]
+        return _decode_step(cfg, params, caches, tokens, pos)
+
+
+def _decode_step(cfg: ModelConfig, params, caches, tokens, pos):
+    x = _embed(cfg, params, tokens)
     x, caches = stack_decode(params["segments"], caches, cfg, cfg.segments, x,
                              pos, shared=params.get("shared"))
     x = rms_norm(x, params["final_scale"], cfg.norm_eps)
@@ -299,6 +364,6 @@ def decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor, pos):
 
 
 __all__ = ["AUX_WEIGHT", "MATRICES", "check_supported", "compute_params",
-           "decode_step", "embed_rows", "encode", "forward", "init_cache", "init_params",
-           "logits_for", "loss_fn", "params_from_numpy", "prefill",
-           "tree_leaves", "tree_map"]
+           "decode_step", "embed_rows", "encode", "forward", "init_cache",
+           "init_params", "logits_for", "loss_fn", "params_from_numpy",
+           "place_batch", "prefill", "tree_leaves", "tree_map"]

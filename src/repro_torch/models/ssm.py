@@ -23,6 +23,17 @@ the prompt rounds otherwise on the CPU, and 6 blocks carry that past the
 tests' 1e-5).
 Mamba2's causal depthwise conv is `F.conv1d` over the prompt with the cached
 tail prepended (the JAX package gathers (B, L, W, C) windows).
+
+On DTensors (models/lm.py's sharded paths) the JAX package's layout pins
+stand where it puts them (mLSTM: the x and z projections, q, k and v;
+Mamba2: q, k and v), the products are `rules.matmul`'s, and each block's
+output is pinned to batch-sharded rows. Mamba2's input product is cut into
+z | xBC | dt at unequal widths, which the "model" shards of `w_in` do not
+follow: the product is gathered over "model" explicitly first (its
+gradient comes back to the shards as the gather's backward gives it), so
+that DTensor does not replicate the hidden dim in the backward. The sLSTM
+runs on replicated heads, its whole loop one `local_map` over each rank's
+rows.
 """
 from __future__ import annotations
 
@@ -31,8 +42,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import is_dtensor
 from repro_torch.models.gla import gla_chunked, gla_step
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.sharding.rules import BATCH_AXES, matmul, shard_hint, split_last
 
 f32 = torch.float32
 
@@ -79,12 +92,15 @@ def _mlstm_qkvg(params, cfg, x):
     h = cfg.num_heads
     hd = di // h
     dt = x.dtype
-    xm = x @ params["w_x"].to(dt)
-    z = x @ params["w_z"].to(dt)
-    q = (xm @ params["w_q"].to(dt)).reshape(b, l, h, hd).transpose(1, 2) * (hd ** -0.5)
-    k = (xm @ params["w_k"].to(dt)).reshape(b, l, h, hd).transpose(1, 2) * (hd ** -0.5)
-    v = xm.reshape(b, l, h, hd).transpose(1, 2)
-    gates = x @ params["w_g"].to(dt) + params["g_bias"].to(dt)
+    xm = shard_hint(matmul(x, params["w_x"].to(dt)), BATCH_AXES, None, "model")
+    z = shard_hint(matmul(x, params["w_z"].to(dt)), BATCH_AXES, None, "model")
+    q = split_last(matmul(xm, params["w_q"].to(dt)), (h, hd)).transpose(1, 2) * (hd ** -0.5)
+    k = split_last(matmul(xm, params["w_k"].to(dt)), (h, hd)).transpose(1, 2) * (hd ** -0.5)
+    v = split_last(xm, (h, hd)).transpose(1, 2)
+    q = shard_hint(q, BATCH_AXES, "model", None, None)
+    k = shard_hint(k, BATCH_AXES, "model", None, None)
+    v = shard_hint(v, BATCH_AXES, "model", None, None)
+    gates = matmul(x, params["w_g"].to(dt)) + params["g_bias"].to(dt)
     i_pre, f_pre = torch.chunk(gates, 2, dim=-1)              # (B, L, H) each
     log_a = -F.softplus(-f_pre.to(f32)).transpose(1, 2)       # log σ(f̃) ≤ 0
     gate_b = torch.exp(torch.clamp_max(i_pre.to(f32), 0.0)).transpose(1, 2)  # ≤ 1
@@ -98,9 +114,14 @@ def _mlstm_out(params, cfg, y_aug, z, shape):
     di = cfg.expand * d
     y, n = y_aug[..., :-1], y_aug[..., -1:]
     h = (y / torch.clamp_min(n.abs(), 1.0)).transpose(1, 2).reshape(b, l, di)
+    # pinned as z is: where the heads do not divide "model" (xLSTM's 4
+    # over 16) h comes replicated, and its gradient must come back whole
+    # before the reshape's backward cuts it into heads
+    h = shard_hint(h, BATCH_AXES, None, "model")
     h = rms_norm(h, params["o_scale"], cfg.norm_eps)
     h = h * F.silu(z)
-    return h @ params["w_down"].to(h.dtype)
+    return shard_hint(matmul(h, params["w_down"].to(h.dtype)), BATCH_AXES,
+                      None, None)
 
 
 def mlstm_apply(params, cfg, x, state: MLSTMState | None = None):
@@ -178,24 +199,65 @@ def _slstm_cell(params, xt, state: SLSTMState):
 
 def _slstm_mlp(params, cfg, y):
     yn = rms_norm(y, params["mlp_scale"], cfg.norm_eps)
-    hidden = F.gelu(yn @ params["mlp_in"].to(y.dtype), approximate="tanh")
-    return y + hidden @ params["mlp_out"].to(y.dtype)
+    hidden = F.gelu(matmul(yn, params["mlp_in"].to(y.dtype)),
+                    approximate="tanh")
+    return shard_hint(y + matmul(hidden, params["mlp_out"].to(y.dtype)),
+                      BATCH_AXES, None, None)
+
+
+def _slstm_scan(params, x, state: SLSTMState):
+    """The cell over x's time steps (B, L, d): (h (B, L, d) in x's dtype,
+    the last state)."""
+    b, l, d = x.shape
+    hs = []
+    for t in range(l):
+        h, state = _slstm_cell(params, x[:, t], state)
+        hs.append(h)
+    return torch.stack(hs, dim=1).reshape(b, l, d).to(x.dtype), state
+
+
+def _slstm_sharded(params, x, state: SLSTMState):
+    """`_slstm_scan` on each rank's rows of DTensors (one `local_map` over
+    the whole loop: a step's ops on local tensors, not a DTensor dispatch
+    each): x and the state batch-sharded where x is, the heads replicated
+    (the state pinned so: a cache may shard them over "model"), the cell's
+    weights whole (their FSDP shards gathered), their gradients partial
+    sums over the mesh dims that split the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.rules import gathered, placed
+
+    mesh = x.device_mesh
+    xp = [Shard(0) if p == Shard(0) else Replicate() for p in x.placements]
+    wp = [Replicate()] * mesh.ndim
+    wg = [Partial() if p == Shard(0) else Replicate() for p in xp]
+    names = ("w", "r", "bias")
+
+    def body(xl, c, n, m, h, *ws):
+        return _slstm_scan(dict(zip(names, ws)), xl, SLSTMState(c, n, m, h))
+
+    return local_map(
+        body, out_placements=(xp,) * 5, in_placements=(xp,) * 5 + (wp,) * 3,
+        in_grad_placements=(xp,) * 5 + (wg,) * 3, device_mesh=mesh)(
+        placed(x, xp), *(placed(v, xp, mesh) for v in state),
+        *(placed(gathered(params[k]), wp, mesh) for k in names))
 
 
 def slstm_apply(params, cfg, x, state: SLSTMState | None = None):
     b, l, d = x.shape
     if state is None:
         state = slstm_cache_init(cfg, b, x.dtype, x.device)
-    hs = []
-    for t in range(l):
-        h, state = _slstm_cell(params, x[:, t], state)
-        hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(b, l, d).to(x.dtype)
+    scan = _slstm_sharded if is_dtensor(x) else _slstm_scan
+    y, state = scan(params, x, state)
     return _slstm_mlp(params, cfg, y), state
 
 
 def slstm_decode(params, cfg, x, state: SLSTMState):
     b, _, d = x.shape
+    if is_dtensor(x):
+        y, state = _slstm_sharded(params, x, state)
+        return _slstm_mlp(params, cfg, y), state
     h, state = _slstm_cell(params, x[:, 0], state)
     y = h.reshape(b, 1, d).to(x.dtype)
     return _slstm_mlp(params, cfg, y), state
@@ -240,7 +302,9 @@ def mamba2_cache_init(cfg, batch: int, dtype, device=None, lead=()) -> Mamba2Sta
 def _mamba2_proj(params, cfg, x):
     di = cfg.expand * cfg.d_model
     n, h = cfg.ssm_state, cfg.num_heads
-    zxbcdt = x @ params["w_in"].to(x.dtype)
+    # z | xBC | dt cut at unequal widths: gathered over "model" first
+    zxbcdt = shard_hint(matmul(x, params["w_in"].to(x.dtype)), BATCH_AXES,
+                        None, None)
     return zxbcdt[..., :di], zxbcdt[..., di: 2 * di + 2 * n], zxbcdt[..., -h:]
 
 
@@ -258,6 +322,9 @@ def _mamba2_ssd_inputs(params, cfg, xbc, dt_pre, b, l):
     v = xs.reshape(b, l, h, p).transpose(1, 2)                           # (B, H, L, P)
     k = bs[:, None].expand(b, h, l, n)           # shared across heads (G=1)
     q = cs[:, None].expand(b, h, l, n)
+    v = shard_hint(v, BATCH_AXES, "model", None, None)
+    k = shard_hint(k, BATCH_AXES, "model", None, None)
+    q = shard_hint(q, BATCH_AXES, "model", None, None)
     return q, k, v, log_a, gate_b, xs
 
 
@@ -269,7 +336,36 @@ def _mamba2_out(params, cfg, y, xs, z, shape):
         xs.reshape(b, l, h, di // h).transpose(1, 2)
     y = y.transpose(1, 2).reshape(b, l, di).to(z.dtype)
     y = rms_norm(y * F.silu(z), params["o_scale"], cfg.norm_eps)
-    return y @ params["w_out"].to(y.dtype)
+    return shard_hint(matmul(y, params["w_out"].to(y.dtype)), BATCH_AXES,
+                      None, None)
+
+
+def _conv(padded, conv_w, conv_b):
+    """The depthwise causal conv of (B, L+W-1, C) windows: (B, L, C)."""
+    weight = conv_w.t().unsqueeze(1)                          # (C, 1, W)
+    return F.conv1d(padded.transpose(1, 2), weight,
+                    groups=padded.shape[-1]).transpose(1, 2) + conv_b
+
+
+def _causal_conv(padded, conv_w, conv_b):
+    """`_conv`; on DTensors each rank's rows (`local_map`: every row and
+    channel is independent; DTensor's own convolution handler takes the
+    sequence for a sharded dim), the weights whole, their gradients partial
+    sums over the mesh dims that split the rows."""
+    if not is_dtensor(padded):
+        return _conv(padded, conv_w, conv_b)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.rules import placed
+
+    mesh = padded.device_mesh
+    xp = [Shard(0) if p == Shard(0) else Replicate() for p in padded.placements]
+    wp = [Replicate()] * mesh.ndim
+    wg = [Partial() if p == Shard(0) else Replicate() for p in xp]
+    return local_map(_conv, out_placements=xp, in_placements=(xp, wp, wp),
+                     in_grad_placements=(xp, wg, wg), device_mesh=mesh)(
+        placed(padded, xp), placed(conv_w, wp, mesh), placed(conv_b, wp, mesh))
 
 
 def mamba2_apply(params, cfg, x, state: Mamba2State | None = None):
@@ -280,9 +376,8 @@ def mamba2_apply(params, cfg, x, state: Mamba2State | None = None):
     tail = state.conv if state is not None else torch.zeros(
         (b, w - 1, ch), dtype=xbc.dtype, device=x.device)
     padded = torch.cat([tail.to(xbc.dtype), xbc], dim=1)      # (B, L+W-1, C)
-    weight = params["conv_w"].to(xbc.dtype).t().unsqueeze(1)  # (C, 1, W)
-    xbc_conv = F.conv1d(padded.transpose(1, 2), weight, groups=ch).transpose(1, 2) \
-        + params["conv_b"].to(xbc.dtype)
+    xbc_conv = _causal_conv(padded, params["conv_w"].to(xbc.dtype),
+                            params["conv_b"].to(xbc.dtype))
     new_tail = padded[:, l:]                                  # last W-1 entries
 
     q, k, v, log_a, gate_b, xs = _mamba2_ssd_inputs(params, cfg, xbc_conv, dt_pre, b, l)

@@ -35,7 +35,7 @@ from repro_torch.models.attention import (cross_apply, cross_init, cross_kv,
                                           mla_apply, mla_cache_init, mla_init)
 from repro_torch.models.layers import rms_norm, swiglu_apply, swiglu_init
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.sharding.rules import BATCH_AXES, shard_hint
+from repro_torch.sharding.rules import BATCH_AXES, assign, shard_hint
 from repro_torch.models.ssm import (mamba2_apply, mamba2_cache_init,
                                     mamba2_decode, mamba2_init, mlstm_apply,
                                     mlstm_cache_init, mlstm_decode, mlstm_init,
@@ -60,7 +60,8 @@ def check_ported(kind: str) -> None:
 
 def _layer(tree, i: int):
     """Layer i of a tree of stacked leaves: views, so writes reach the
-    stacked tensors."""
+    stacked tensors (a DTensor's too: its layer dim is never sharded, so
+    the view's local tensor is a view of the stacked local shard)."""
     if isinstance(tree, torch.Tensor):
         return tree[i]
     if isinstance(tree, tuple):
@@ -115,7 +116,7 @@ def block_apply(params, cfg, kind: str, x, *, positions, shared=None,
         o, new = (decode if is_decode else apply)(params["cell"], cfg, h, cache)
         if cache is not None:
             for dst, src in zip(cache, new):
-                dst.copy_(src)
+                assign(dst, src)
         return x + o, aux, cache
     if kind == "mla":
         o, new_cache = mla_apply(params["attn"], cfg, h, positions=positions,

@@ -34,8 +34,8 @@ import math
 from typing import Any, Tuple
 
 from torch.utils._pytree import (MappingKey, SequenceKey, GetAttrKey,
-                                 tree_flatten_with_path, tree_map,
-                                 tree_unflatten)
+                                 tree_flatten, tree_flatten_with_path,
+                                 tree_map, tree_unflatten)
 
 from repro_torch.kernels import is_dtensor
 
@@ -235,6 +235,135 @@ def cache_specs(mesh, caches: Pytree, batch: int, seq_sharded: bool) -> Pytree:
     return tree_map(spec, caches)
 
 
+#: cache leaves whose dim 2 is the sequence, not heads: MLA's latent and
+#: shared rotary key (B, S, r) stacked over layers
+_SEQ_DIM2_LEAVES = ("c_kv", "k_rope")
+
+
+def seq_shard_over_model(cspec, caches, mesh):
+    """`cspec` with a decode KV cache's sequence dim over "model" where its
+    heads are not TP-sharded (the JAX `launch/perf.py`'s
+    `_seq_shard_over_model`: leaves of 5 dims whose sequence, dim 3, is
+    longer than 1,024 and divides by "model")."""
+    from torch.utils._pytree import tree_leaves
+
+    specs, treedef = tree_flatten(cspec, is_leaf=is_spec)
+    out = []
+    for spec, leaf in zip(specs, tree_leaves(caches)):
+        if (leaf.dim() >= 5 and spec[2] is None
+                and leaf.shape[3] % _size(mesh, "model") == 0
+                and leaf.shape[3] > 1024):
+            lst = list(spec) + [None] * (leaf.dim() - len(spec))
+            lst[3] = "model" if lst[3] is None else lst[3]
+            spec = tuple(lst)
+        out.append(spec)
+    return tree_unflatten(out, treedef)
+
+
+def serve_cache_specs(mesh, caches: Pytree, batch: int,
+                      seq_shard_decode: bool = False) -> Pytree:
+    """The specs prefill and decode lay their caches out by: `cache_specs`
+    with the JAX `launch/perf.py`'s batch-1 rule (`seq_sharded = batch ==
+    1`: the sequence, or a recurrent state's K dim, over the data axes),
+    under `seq_shard_decode` the sequence over "model" where the heads are
+    not (`seq_shard_over_model`), and MLA's latent cache (B, S, r) never
+    with its sequence on "model" (`cache_specs` reads its dim 2 as heads
+    where it is at most 512 long)."""
+    specs = cache_specs(mesh, caches, batch, seq_sharded=batch == 1)
+    if seq_shard_decode:
+        specs = seq_shard_over_model(specs, caches, mesh)
+    tp = tp_axis(mesh)
+    leaves, treedef = tree_flatten_with_path(caches)
+    flat = []
+    for (path, _), spec in zip(leaves, tree_flatten(specs, is_leaf=is_spec)[0]):
+        if _path_str(path).rsplit("/", 1)[-1] in _SEQ_DIM2_LEAVES:
+            spec = tuple(None if i == 2 and e == tp else e
+                         for i, e in enumerate(spec))
+        flat.append(spec)
+    return tree_unflatten(flat, treedef)
+
+
+def lay_out_cache(caches: Pytree, mesh, specs: Pytree) -> Pytree:
+    """Every cache leaf as a DTensor on `mesh` laid out by its spec
+    (`serve_cache_specs`): of a plain leaf, the whole zeroed (or filled)
+    tensor on every rank, each rank keeps its shard; a DTensor leaf is
+    redistributed. The leaves keep their tree (`KVCache`s, states)."""
+    dm = device_mesh(mesh)
+    leaves, treedef = tree_flatten(caches)
+    spec_leaves = tree_flatten(specs, is_leaf=is_spec)[0]
+    return tree_unflatten([placed(x, to_placements(s, dm), dm)
+                           for x, s in zip(leaves, spec_leaves)], treedef)
+
+
+def assign(dst, src) -> None:
+    """`dst.copy_(src)` in place, no gradient: for a DTensor `dst` (a cache
+    leaf, or a view of one layer of it) each rank copies into its own local
+    shard, `src` laid out as `dst` first, so `dst` keeps its placements and
+    the write lands in the stacked cache it views."""
+    import torch
+
+    with torch.no_grad():
+        if not is_dtensor(dst):
+            dst.copy_(src)
+            return
+        src = placed(src, dst.placements, dst.device_mesh)
+        dst.to_local().copy_(src.to_local())
+
+
+def shard_start(n: int, mesh, placements, dim: int):
+    """(first index, count) of this rank's shard of a dim `n` long under
+    `placements`, sharded evenly over every mesh dim that names it, in mesh
+    order as DTensor nests them."""
+    from torch.distributed.tensor import Shard
+
+    first, coord = 0, mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p == Shard(dim):
+            n //= mesh.size(i)
+            first += coord[i] * n
+    return first, n
+
+
+def write_rows(dst, src, write, seq_dim: int) -> None:
+    """`write(dst, src, first, row0)` into a cache leaf in place, no
+    gradient: `src` in `dst`'s dtype, `first` the absolute index of `dst`'s
+    first slot along `seq_dim`, `row0` that of its first batch row (dim 0).
+    A plain `dst` is written whole (0, 0). For a DTensor `dst` each rank
+    writes into its own local shard: `src` is laid out as `dst` on every
+    mesh dim but those that split `seq_dim`, where it is whole (so the
+    batch and head shards write their own rows, and under a sequence split
+    each rank the positions it holds, by `first`)."""
+    import torch
+
+    with torch.no_grad():
+        if not is_dtensor(dst):
+            write(dst, src.to(dst.dtype), 0, 0)
+            return
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = dst.device_mesh
+        sp = [Replicate() if p == Shard(seq_dim) else p
+              for p in dst.placements]
+        first, _ = shard_start(dst.shape[seq_dim], mesh, dst.placements,
+                               seq_dim)
+        row0, _ = shard_start(dst.shape[0], mesh, dst.placements, 0)
+        src = placed(src, sp, mesh)
+        write(dst.to_local(), src.to_local().to(dst.dtype), first, row0)
+
+
+def replicating(sharded: bool):
+    """DTensor's `implicit_replication` for a sharded step (plain tensors
+    made inside it, such as positions, masks and the step count, are
+    replicated), nothing otherwise."""
+    if not sharded:
+        import contextlib
+
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
 def is_spec(x) -> bool:
     """Whether `x` is a spec (a plain tuple of None, axis names and tuples
     of axis names), not a container of them: for `tree_leaves(specs,
@@ -381,6 +510,22 @@ def split_last(y, shape):
     return y.reshape(tuple(y.shape[:-1]) + tuple(shape))
 
 
+def head_columns(w, heads: int):
+    """A weight w (K, heads·width) for a product whose output is cut into
+    `heads` heads: a DTensor's column shards gathered on each mesh dim
+    that does not divide `heads` (MiniCPM3's 40 over a "model" of 16),
+    where the pins would replicate the heads of the product; gathering the
+    weight moves far fewer bytes than the product (MLA's expands the whole
+    latent cache). A plain tensor, or shards that divide, as they are."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    last, mesh = Shard(w.ndim - 1), w.device_mesh
+    return placed(w, [Replicate() if p == last and heads % mesh.size(i)
+                      else p for i, p in enumerate(w.placements)])
+
+
 def gathered(w):
     """A weight for its use: a DTensor's shards over the data axes (its
     FSDP axis) gathered, its "model" shards kept (ZeRO-3: the per-layer
@@ -466,7 +611,10 @@ def shard_hint(x, *axes):
 
 
 __all__ = ["BATCH_AXES", "Sharding", "batch_specs", "cache_specs",
-           "data_axes", "device_mesh", "distribute", "fsdp_axis", "gathered",
-           "is_spec", "lay_out", "local_shape", "matmul", "opt_specs",
-           "param_specs", "placed", "set_moe_ep_only", "shard_hint",
-           "split_last", "to_placements", "to_shardings", "tp_axis"]
+           "assign", "data_axes", "device_mesh", "distribute", "fsdp_axis",
+           "gathered", "head_columns",
+           "is_spec", "lay_out", "lay_out_cache", "local_shape", "matmul",
+           "opt_specs", "param_specs", "placed", "replicating",
+           "seq_shard_over_model", "serve_cache_specs", "set_moe_ep_only",
+           "shard_hint", "shard_start", "split_last", "to_placements",
+           "to_shardings", "tp_axis", "write_rows"]

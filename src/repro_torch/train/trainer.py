@@ -34,7 +34,6 @@ the step count) are replicated.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable
 
@@ -45,6 +44,7 @@ from torch.utils._pytree import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import is_dtensor
 from repro_torch.models import lm
+from repro_torch.models.lm import place_batch
 from repro_torch.sharding import rules
 from repro_torch.train.compression import compress_decompress
 from repro_torch.train.optim import (Adam, AdamState, cosine_schedule,
@@ -91,22 +91,6 @@ def _whole(x):
     return x.full_tensor()
 
 
-def place_batch(batch, params):
-    """`batch` on the params' device; on their mesh where they are DTensors,
-    laid out by `rules.batch_specs` (every rank holds the whole batch, as
-    every host does in the JAX launcher, and keeps its own rows; a value
-    that is a DTensor already is kept)."""
-    leaf = lm.tree_leaves(params)[0]
-    if not is_dtensor(leaf):
-        return {k: torch.as_tensor(v, device=leaf.device)
-                for k, v in batch.items()}
-    mesh = leaf.device_mesh
-    shardings = rules.to_shardings(rules.batch_specs(mesh, batch), mesh)
-    return {k: v if is_dtensor(v) else rules.distribute(
-                torch.as_tensor(v, device=leaf.device), shardings[k])
-            for k, v in batch.items()}
-
-
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, ce_chunk: int = 512,
                     q_chunk: int | None = None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
@@ -143,7 +127,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, ce_chunk: int = 512,
 
     def train_step(params, opt_state: AdamState, batch):
         sharded = is_dtensor(lm.tree_leaves(params)[0])
-        with _replicating(sharded):
+        with rules.replicating(sharded):
             batch = place_batch(batch, params)
             with torch.profiler.record_function(STAGES[0]):
                 loss, grads = grads_of(params, batch)
@@ -158,15 +142,6 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, ce_chunk: int = 512,
         return params, opt_state, metrics
 
     return train_step
-
-
-def _replicating(sharded: bool):
-    """DTensor's `implicit_replication` for a sharded step, nothing else."""
-    if not sharded:
-        return contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
-
-    return implicit_replication()
 
 
 def init_train_state(cfg: ModelConfig, tc: TrainConfig, gen: torch.Generator,

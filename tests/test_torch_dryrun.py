@@ -77,7 +77,8 @@ def test_cells_report_bytes_fit_and_flops():
     cell = dryrun.run_cell("h2o-danube-1.8b", "prefill_32k", multi_pod=False)
     assert cell["status"] == "ok" and cell["chips"] == 256
     assert set(cell["bytes_per_device"]) == {"params", "batch"}
-    assert cell["fits_h100_80gb"] and cell["collective_bytes_per_device"] is None
+    assert cell["fits_h100_80gb"]
+    assert cell["collective_bytes_per_device"]["total"] > 0
     assert cell["flash_launches"] == get_config("h2o-danube-1.8b").num_layers
     assert cell["flops"] > cell["flash_flops"] > 0
     skipped = dryrun.run_cell("yi-6b", "long_500k", multi_pod=True, flops=False)
@@ -93,16 +94,19 @@ def test_cells_report_bytes_fit_and_flops():
 
 
 def test_dense_train_cell_counts_its_collectives():
-    """The dry run's collective bytes of a dense train cell come from
-    launch/perf.py's sharded run (here the reduced yi-6b on a described
-    (2, 2) mesh): by kind, non-null; a cell that does not run sharded, or a
-    step not run, says why."""
+    """The dry run's collective bytes of a cell come from launch/perf.py's
+    sharded run (here on a described (2, 2) mesh, reduced configs): by
+    kind, non-null, for the dense train cell and for the MLA, recurrent
+    and encoder-decoder families and a batch-1 decode with its caches split
+    over their sequence; a cell the registry skips, or a step not run, says
+    why."""
     from repro_torch.configs.base import shape_by_name
+    from repro_torch.configs.registry import cell_supported
     from repro_torch.launch.mesh import Mesh
 
+    mesh = Mesh({"data": 2, "model": 2})
     train = shape_by_name("train_4k")
-    got = dryrun.collectives("yi-6b", train, False,
-                             mesh=Mesh({"data": 2, "model": 2}), reduced=True)
+    got = dryrun.collectives("yi-6b", train, False, mesh=mesh, reduced=True)
     coll = got["collective_bytes_per_device"]
     assert coll["total"] > 0 and coll["all-gather"] > 0
     assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
@@ -110,6 +114,13 @@ def test_dense_train_cell_counts_its_collectives():
                               flops=False)
     assert skipped["collective_bytes_per_device"] is None
     assert "not run" in skipped["collective_bytes_why"]
-    mla = dryrun.collectives("minicpm3-4b", train, False)
-    assert mla["collective_bytes_per_device"] is None
-    assert "ROADMAP A17" in mla["collective_bytes_why"]
+    for arch, shape in (("minicpm3-4b", "train_4k"),
+                        ("whisper-base", "decode_32k"),
+                        ("zamba2-2.7b", "long_500k")):
+        got = dryrun.collectives(arch, shape_by_name(shape), False, mesh=mesh,
+                                 reduced=True)
+        assert got["collective_bytes_per_device"]["total"] > 0, (arch, shape)
+    long = shape_by_name("long_500k")
+    pure = dryrun.collectives("yi-6b", long, False, mesh=mesh, reduced=True)
+    assert pure["collective_bytes_per_device"] is None
+    assert pure["collective_bytes_why"] == cell_supported("yi-6b", "long_500k")

@@ -14,9 +14,12 @@ port's dry run, on the CPU.
   `moe_ep_only=1` moves fewer all-gather bytes than the baseline (no FSDP
   gathers of the expert bank); `remat=full` counts at least the FLOPs of
   `remat=none`; `_MOE_EP_ONLY` is back after a variant that raised.
-- A cell that does not run sharded gives null collective bytes and
-  collective time, each with the ROADMAP item that adds them, and the CLI
-  prints the JAX module's keys.
+- Every cell the registry runs is laid out (train, prefill, decode): the
+  reduced yi-6b's prefill and decode FLOPs a device times the 4 ranks are
+  the dry run's one-device count; `seq_shard_decode=1` takes the reduced
+  yi-6b's decode cache off its "model" replicas on a (2, 4) mesh. A cell
+  the registry skips gives null collective bytes and collective time, with
+  the registry's reason, and the CLI prints the JAX module's keys.
 """
 import contextlib
 import io
@@ -27,6 +30,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import shape_by_name
+from repro_torch.configs.registry import cell_supported, get_config
 from repro_torch.launch import perf
 from repro_torch.launch.mesh import Mesh
 from repro_torch.sharding import rules
@@ -122,13 +126,22 @@ def test_moe_ep_only_moves_fewer_all_gather_bytes_and_is_restored():
 
 
 def test_unsharded_cells_say_why_and_the_cli_prints_jax_keys():
+    """Every cell the registry runs is laid out (MLA's train cell here);
+    only a cell the registry skips (a pure-attention arch at long_500k)
+    gives null collective terms, with the registry's reason. The CLI, on
+    the production mesh, prints the JAX module's keys for a decode cell
+    laid out with its caches."""
     res = perf.measure("minicpm3-4b", "train_4k", mesh=MESH, reduced=True)
-    assert res["sharded"] is False
-    assert res["collective_bytes_per_device"] is None
-    assert set(res["null_reasons"]) == {"collective_bytes_per_device",
-                                        "collective_s", "temp_gib"}
-    assert all("ROADMAP A17" in why for why in res["null_reasons"].values())
+    assert res["sharded"] is True and res["null_reasons"] == {}
+    assert res["collective_bytes_per_device"]["total"] > 0
     assert res["flops_per_device"] > 0 and res["args_gib"] > 0
+    skipped = perf.measure("yi-6b", "long_500k", mesh=MESH, reduced=True)
+    assert skipped["sharded"] is False
+    assert skipped["collective_bytes_per_device"] is None
+    assert set(skipped["null_reasons"]) == {"collective_bytes_per_device",
+                                            "collective_s", "temp_gib"}
+    why = cell_supported("yi-6b", "long_500k")
+    assert why and all(v == why for v in skipped["null_reasons"].values())
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         assert perf.main(["--arch", "whisper-base", "--shape",
@@ -136,8 +149,63 @@ def test_unsharded_cells_say_why_and_the_cli_prints_jax_keys():
     cli = json.loads(out.getvalue())
     assert set(JAX_KEYS) <= set(cli)
     assert cli["mesh"] == {"data": 16, "model": 16}
-    assert "decode" in cli["null_reasons"]["collective_bytes_per_device"]
+    assert cli["sharded"] and cli["null_reasons"] == {}
+    assert cli["collective_bytes_per_device"]["total"] > 0
     assert cli["ceilings"]["nvlink_bytes_per_s"] == perf.NVLINK_BYTES_PER_S
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_serving_flops_split_evenly(shape):
+    """A prefill or decode cell's per-device FLOPs times the mesh's size
+    are its one-device count (the dry run's, on meta tensors) on the
+    reduced dense model: every product, and attention, is split over the
+    batch and the heads; the caches are laid out (decode: by the rules'
+    cache specs), and the step issues collectives."""
+    cell = shape_by_name(shape)
+    got = perf.sharded_counts("yi-6b", cell, perf.parse_variant(""),
+                              mesh=MESH, reduced=True)
+    want = perf.unsharded_counts("yi-6b", cell, perf.parse_variant(""),
+                                 mesh=MESH, reduced=True)
+    assert got["flops"] * MESH.size == want["flops"] * MESH.size > 0
+    assert got["collectives"]["total"] > 0
+    assert got["flash_launches"] == get_config("yi-6b", reduced=True).num_layers
+
+
+def test_seq_shard_decode_moves_cache_bytes_off_the_model_replicas():
+    """Where the KV heads do not divide "model" (the reduced yi-6b's 2 over
+    4), its decode cache is replicated over "model"; `seq_shard_decode=1`
+    puts the sequence there instead: a quarter of the cache's bytes a
+    device, and the one-token query (gathered over "model") attends over
+    each rank's keys, the ranks' log-sum-exps merged by all-reduces."""
+    mesh = Mesh({"data": 2, "model": 4})
+    cell = shape_by_name("decode_32k")
+    cfg = get_config("yi-6b", reduced=True)
+    base = perf.sharded_counts("yi-6b", cell, perf.parse_variant(""),
+                               mesh=mesh, reduced=True)
+    split = perf.sharded_counts("yi-6b", cell,
+                                perf.parse_variant("seq_shard_decode=1"),
+                                mesh=mesh, reduced=True)
+    kv = 2 * cfg.num_layers * cell.global_batch * cfg.num_kv_heads \
+        * cell.seq_len * cfg.hd * 2 // mesh.shape["data"]   # bf16
+    assert base["args_bytes"] - split["args_bytes"] == kv - kv // 4
+    assert split["collectives"]["all-reduce"] > base["collectives"]["all-reduce"]
+    # a device's attention: its query head over every key, or every query
+    # head over its quarter of the keys
+    assert split["flops"] == base["flops"]
+
+
+def test_recurrent_train_cell_where_heads_do_not_divide_model():
+    """The production xLSTM's 4 heads do not divide a "model" of 16: the
+    mLSTM's q, k and v stay replicated there while its x and z
+    projections shard over "model", and the step's backward must bring the
+    output's gradient back whole before cutting it into heads. The reduced
+    xLSTM (4 heads) on a described (1, 8) mesh takes the same layout."""
+    from repro_torch.configs.base import ShapeConfig
+
+    got = perf.sharded_counts("xlstm-350m", ShapeConfig("t", "train", 32, 8),
+                              perf.parse_variant(""),
+                              mesh=Mesh({"data": 1, "model": 8}), reduced=True)
+    assert got["flops"] > 0 and got["collectives"]["total"] > 0
 
 
 def test_sharded_report_has_every_term():
